@@ -1,0 +1,88 @@
+"""Model registry (port of ``rank_tpu/models/registry.py``).
+
+``DEFAULT_CONFIGS`` is the JAX package's, whole: each reference model's
+best-AUC hyperparameters (BASELINE.md). ``MODEL_CLASSES`` holds the models
+ported so far; asking for another one of the zoo raises.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Type
+
+import torch
+
+from ..features import FeatureSchema
+from .base import ModelConfig, RankModel
+from .sequence import DIN
+
+MODEL_CLASSES: Dict[str, Type[RankModel]] = {
+    "din": DIN,
+}
+
+# Best-AUC hyperparameters from each model's result.md sweep (BASELINE.md).
+DEFAULT_CONFIGS: Dict[str, ModelConfig] = {
+    "deepfm": ModelConfig(name="deepfm", embedding_dim=16),
+    "fwfm": ModelConfig(name="fwfm", embedding_dim=16),
+    "ffm": ModelConfig(name="ffm", embedding_dim=8),
+    "afm": ModelConfig(name="afm", embedding_dim=32, attention_factor=64),
+    "pnn": ModelConfig(name="pnn", embedding_dim=16, pnn_mode="inner"),
+    "widedeep": ModelConfig(name="widedeep"),
+    "dcn": ModelConfig(name="dcn", num_cross_layers=3, hidden_units=(512, 256, 128)),
+    "deepcrossing": ModelConfig(
+        name="deepcrossing", residual_internal_dim=256, num_residual_units=2
+    ),
+    "xdeepfm": ModelConfig(name="xdeepfm", embedding_dim=16, cin_layer_sizes=(128, 128)),
+    "fibinet": ModelConfig(name="fibinet", embedding_dim=16),
+    "autoint": ModelConfig(name="autoint", embedding_dim=16),
+    "flen": ModelConfig(name="flen", embedding_dim=16),
+    "din": ModelConfig(
+        name="din", activation="dice", use_softmax=True,
+        mini_batch_aware_regularization=False,
+    ),
+    "bst": ModelConfig(
+        name="bst", num_transformer_blocks=2, num_heads=2, pooling_method="mean"
+    ),
+    "dien": ModelConfig(name="dien", gru_hidden_dim=16, activation="prelu"),
+    "esmm": ModelConfig(name="esmm", tasks=("read_comment", "like")),
+    "mmoe": ModelConfig(name="mmoe"),
+    "ple": ModelConfig(name="ple"),
+}
+
+
+def default_config(name: str, **overrides) -> ModelConfig:
+    cfg = DEFAULT_CONFIGS[name]
+    return cfg.replace(**overrides) if overrides else cfg
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device; raises for a CUDA device when there is
+    none, rather than carrying on on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on the CPU"
+        )
+    return device
+
+
+def build_model(
+    schema: FeatureSchema,
+    cfg: ModelConfig,
+    device="cuda",
+    generator: Optional[torch.Generator] = None,
+) -> RankModel:
+    """Build ``cfg.name`` with weights drawn from ``generator`` (seed 0 when
+    None) on the CPU, then move it to ``device``."""
+    device = resolve_device(device)
+    if cfg.name not in MODEL_CLASSES:
+        if cfg.name in DEFAULT_CONFIGS:
+            raise NotImplementedError(
+                f"model {cfg.name!r} is not ported to rank_tpu_torch yet; "
+                f"ported: {sorted(MODEL_CLASSES)}"
+            )
+        raise ValueError(
+            f"unknown model {cfg.name!r}; available: {sorted(DEFAULT_CONFIGS)}"
+        )
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    return MODEL_CLASSES[cfg.name](schema, cfg, generator=generator).to(device)

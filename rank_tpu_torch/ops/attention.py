@@ -1,0 +1,89 @@
+"""Target attention over behaviour sequences, DIN form (port of
+``rank_tpu/ops/attention.py``).
+
+DIN's local-activation unit: cross features [q, k, q-k, q*k] ->
+MLP(4d->64->32->1) scores; mask by sequence length; either the scaled
+masked softmax (``use_softmax``) or the raw masked scores; weighted-sum
+pool over keys. Zero-length sequences give an all-zero pooled vector.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+from torch import nn
+
+from .mlp import init_dense_
+
+MASK_NEG = -(2.0**32) + 1.0  # reference padding value, din.py:74
+
+
+def length_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
+    """(B,) lengths -> (B, T) boolean validity mask."""
+    t = torch.arange(max_len, dtype=lengths.dtype, device=lengths.device)[None, :]
+    return t < lengths[:, None]
+
+
+def masked_softmax(scores: torch.Tensor, mask: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Softmax that returns zeros where every position is masked (rather
+    than the NaN of a softmax over all -inf)."""
+    masked = torch.where(mask, scores, MASK_NEG)
+    m = torch.amax(masked, dim=dim, keepdim=True)
+    e = torch.exp(masked - m) * mask.to(scores.dtype)
+    denom = torch.sum(e, dim=dim, keepdim=True)
+    return e / torch.clamp_min(denom, 1e-12)
+
+
+class DINAttention(nn.Module):
+    """DIN local-activation unit with a registered scoring MLP.
+
+    The weights ``w1..b3`` are raw parameters in flax's (in, out) layout,
+    so the kernel reads them as the JAX kernel does.
+
+    backend:
+      * ``'auto'``: the hand-written CUDA kernel on CUDA tensors, the plain
+        version on CPU tensors;
+      * ``'pallas'``: the kernel (the JAX package's name for its kernel
+        backend); raises on CPU tensors;
+      * ``'jnp'``: the plain torch version, on any device.
+    """
+
+    def __init__(
+        self,
+        dim: int,
+        hidden_units: Sequence[int] = (64, 32),
+        use_softmax: bool = False,
+        backend: str = "auto",
+        dense_init: str = "lecun",
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        if backend not in ("auto", "pallas", "jnp"):
+            raise ValueError(f"unknown kernel backend {backend!r}")
+        self.use_softmax = use_softmax
+        self.backend = backend
+        h1, h2 = hidden_units
+        shapes = {"w1": (4 * dim, h1), "b1": (h1,), "w2": (h1, h2), "b2": (h2,),
+                  "w3": (h2, 1), "b3": (1,)}
+        for name, shape in shapes.items():
+            setattr(self, name, nn.Parameter(torch.empty(shape)))
+        init_dense_(self.w1, self.b1, 4 * dim, dense_init, generator)
+        init_dense_(self.w2, self.b2, h1, dense_init, generator)
+        init_dense_(self.w3, self.b3, h2, dense_init, generator)
+
+    def forward(
+        self,
+        query: torch.Tensor,    # (B, D) target item embedding
+        keys: torch.Tensor,     # (B, T, D) behaviour sequence embeddings
+        lengths: torch.Tensor,  # (B,) valid lengths
+    ) -> torch.Tensor:
+        from .kernels import din_attention as kernels
+
+        fn = {
+            "auto": kernels.din_attention,
+            "pallas": kernels.din_attention_cuda,
+            "jnp": kernels.din_attention_plain,
+        }[self.backend]
+        params = (self.w1, self.b1, self.w2, self.b2, self.w3, self.b3)
+        return fn(query, keys, lengths, params, self.use_softmax)

@@ -1,0 +1,143 @@
+"""Fused DIN attention: the hand-written CUDA kernel and its plain version.
+
+Port of the Pallas TPU kernel ``rank_tpu/ops/pallas/din_attention.py``
+(``din_attention_fused``). The kernel lives in ``csrc/din_attention.cu``;
+its header says what bounds it on an H100 and how its design answers that.
+
+  * ``din_attention_cuda``: launches the kernel; CUDA tensors only, f32
+    inputs and int32 lengths, contiguous; raises on anything else.
+    ``din_attention_cuda.launches`` counts its launches.
+  * ``din_attention_plain``: the same function in plain torch ops (the
+    JAX ``DINAttention`` 'jnp' math), the oracle the kernel is held against.
+  * ``din_attention``: the kernel for CUDA tensors, the plain version for
+    CPU tensors.
+
+Forward only: the training slice wraps the kernel in a
+``torch.autograd.Function`` whose backward recomputes through the plain
+version, as the JAX kernel's ``_bwd`` does.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Sequence
+
+import torch
+
+from . import _build
+from ..attention import MASK_NEG, length_mask, masked_softmax
+
+_lib = None
+
+
+def library() -> ctypes.CDLL:
+    """Build (at first use) and load the kernel's shared library."""
+    global _lib
+    if _lib is None:
+        lib = _build.load("din_attention")
+        lib.din_attention_fwd.argtypes = (
+            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        )
+        lib.din_attention_fwd.restype = ctypes.c_int
+        lib.din_attention_error_string.argtypes = [ctypes.c_int]
+        lib.din_attention_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def din_attention_plain(
+    query: torch.Tensor,
+    keys: torch.Tensor,
+    lengths: torch.Tensor,
+    params: Sequence[torch.Tensor],
+    use_softmax: bool,
+) -> torch.Tensor:
+    """(B, D), (B, T, D), (B,) -> (B, D); the JAX DINAttention 'jnp' math,
+    in its order: mask, then divide by sqrt(d)."""
+    w1, b1, w2, b2, w3, b3 = params
+    _, t, d = keys.shape
+    q = query[:, None, :].expand_as(keys)
+    cross = torch.cat([q, keys, q - keys, q * keys], dim=-1)  # (B, T, 4D)
+    h = torch.relu(cross @ w1 + b1)
+    h = torch.relu(h @ w2 + b2)
+    scores = (h @ w3 + b3)[..., 0]  # (B, T)
+    mask = length_mask(lengths, t)
+    if use_softmax:
+        scores = torch.where(mask, scores, MASK_NEG) / math.sqrt(d)
+        weights = masked_softmax(scores, mask)
+    else:
+        weights = torch.where(mask, scores, 0.0)
+    return torch.einsum("bt,btd->bd", weights, keys)
+
+
+def din_attention_cuda(
+    query: torch.Tensor,
+    keys: torch.Tensor,
+    lengths: torch.Tensor,
+    params: Sequence[torch.Tensor],
+    use_softmax: bool,
+) -> torch.Tensor:
+    """Launch the CUDA kernel; raises unless every input is a contiguous
+    CUDA tensor on one device with the kernel's dtypes and shapes."""
+    w1, b1, w2, b2, w3, b3 = params
+    named = {"query": query, "keys": keys, "lengths": lengths, "w1": w1, "b1": b1,
+             "w2": w2, "b2": b2, "w3": w3, "b3": b3}
+    for name, x in named.items():
+        if x.device.type != "cuda" or x.device != query.device:
+            raise ValueError(
+                f"din_attention_cuda needs every input on one CUDA device; "
+                f"{name} is on {x.device}, query on {query.device}"
+            )
+        want = torch.int32 if name == "lengths" else torch.float32
+        if x.dtype != want:
+            raise TypeError(f"din_attention_cuda: {name} is {x.dtype}, needs {want}")
+        if not x.is_contiguous():
+            raise ValueError(f"din_attention_cuda: {name} is not contiguous")
+    b, t, d = keys.shape
+    h1, h2 = w2.shape
+    shapes = {"query": (b, d), "lengths": (b,), "w1": (4 * d, h1), "b1": (h1,),
+              "b2": (h2,), "w3": (h2, 1), "b3": (1,)}
+    for name, shape in shapes.items():
+        if tuple(named[name].shape) != shape:
+            raise ValueError(
+                f"din_attention_cuda: {name} has shape {tuple(named[name].shape)}, "
+                f"needs {shape} for keys of shape {tuple(keys.shape)}"
+            )
+    if h2 > 64:
+        raise ValueError(f"din_attention_cuda: second hidden width {h2} > 64")
+    out = torch.empty((b, d), dtype=torch.float32, device=query.device)
+    if b == 0:
+        return out
+    lib = library()
+    stream = torch.cuda.current_stream(query.device).cuda_stream
+    err = lib.din_attention_fwd(
+        query.data_ptr(), keys.data_ptr(), lengths.data_ptr(),
+        w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+        w3.data_ptr(), b3.data_ptr(), out.data_ptr(),
+        b, t, d, h1, h2, int(use_softmax), query.device.index, stream,
+    )
+    if err != 0:
+        raise RuntimeError(
+            f"din_attention_fwd launch failed: "
+            f"{lib.din_attention_error_string(err).decode()} (B={b}, T={t}, D={d}, "
+            f"H1={h1}, H2={h2})"
+        )
+    din_attention_cuda.launches += 1
+    return out
+
+
+din_attention_cuda.launches = 0
+
+
+def din_attention(
+    query: torch.Tensor,
+    keys: torch.Tensor,
+    lengths: torch.Tensor,
+    params: Sequence[torch.Tensor],
+    use_softmax: bool,
+) -> torch.Tensor:
+    """The kernel for CUDA tensors; the plain version for CPU tensors."""
+    if keys.device.type == "cpu":
+        return din_attention_plain(query, keys, lengths, params, use_softmax)
+    return din_attention_cuda(query, keys, lengths, params, use_softmax)

@@ -1,0 +1,72 @@
+"""Inference/serving path (port of ``rank_tpu/serve.py``).
+
+``Predictor`` serves padded request batches from a model in eval mode.
+Requests are padded up to the nearest power-of-two bucket (>= min_bucket)
+by repeating row 0, so the kernels see a handful of shapes, as the JAX
+package's compiled programs do.
+
+Not ported yet: reading ``model_dir`` (waits for the checkpoint port),
+``weights_dtype``, ``export_serving_artifact`` and multi-task heads.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping, Optional
+
+import numpy as np
+import torch
+
+from .features import FeatureSchema
+from .models.base import ModelConfig
+from .models.registry import build_model
+
+
+def _bucket(n: int, min_bucket: int) -> int:
+    b = min_bucket
+    while b < n:
+        b *= 2
+    return b
+
+
+class Predictor:
+    def __init__(
+        self,
+        schema: FeatureSchema,
+        model_cfg: ModelConfig,
+        model_dir: Optional[str] = None,
+        state_dict: Optional[Mapping[str, torch.Tensor]] = None,
+        min_bucket: int = 256,
+        device="cuda",
+    ):
+        """``state_dict`` is the port's counterpart of the JAX Predictor's
+        ``variables=`` (``interop.state_dict_from_flax`` converts them)."""
+        if state_dict is None:
+            if model_dir is not None:
+                raise NotImplementedError(
+                    "reading model_dir waits for the checkpoint port; pass state_dict="
+                )
+            raise ValueError("need model_dir or state_dict")
+        self.schema = schema
+        self.model_cfg = model_cfg
+        self.min_bucket = min_bucket
+        self.model = build_model(schema, model_cfg, device=device)
+        self.model.load_state_dict(state_dict)
+        self.model.eval()
+        self.device = torch.device(device)
+
+    def __call__(self, batch: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        """batch: loader-layout feature dict (no labels required).
+        Returns {"score": (N,) probabilities}."""
+        n = next(iter(batch.values())).shape[0]
+        b = _bucket(n, self.min_bucket)
+        padded = {}
+        for k, v in batch.items():
+            if k in ("labels", "_valid"):
+                continue
+            v = np.asarray(v)
+            if b != n:
+                v = np.concatenate([v, np.repeat(v[:1], b - n, axis=0)], axis=0)
+            padded[k] = torch.from_numpy(v).to(self.device)
+        with torch.inference_mode():
+            logits = self.model(padded)["logits"]
+            return {"score": torch.sigmoid(logits)[:n].cpu().numpy()}
