@@ -9,23 +9,39 @@ Phases; any failure raises and the script exits non-zero:
   1. device: requires ``torch.cuda.is_available()``; prints the card's
      name and power limit (``nvidia-smi``);
   2. build: compiles every hand-written kernel from the sources in the
-     checkout and prints the build time and the compiler's register and
-     shared-memory report;
+     checkout, one ``nvcc`` per source, all started together, and prints
+     the build time and the compiler's register and shared-memory report;
   3. kernels vs plain: each kernel against its plain torch version on the
-     card, at the main path's shapes and at edge cases (B=1, B=7, empty
-     and full rows, both softmax modes), within rtol/atol 1e-5;
-  4. main path: full-width DIN (``WECHAT_SCHEMA``, ``default_config("din")``,
-     random seeded weights, random BatchNorm statistics and Dice alphas)
-     served by ``Predictor`` for requests of 1, 100, 1000 and 5000 rows.
-     Launch counts are zeroed just before and read just after; every
-     kernel of the path must have launched. Each answer is held against
-     the same weights served with the plain attention on the card, and a
-     profiler trace of one request must show the kernel on the device;
+     card, within rtol/atol 1e-5: B1 (DIN attention) at B in {1, 7, 256,
+     8192}, both softmax modes; B2 (one CIN layer) at both layers' shapes
+     of the default xDeepFM and B in {1, 7, 1024, 8192}; and for both, the
+     gradients through their autograd Function against autograd through
+     the plain version, at B = 1024;
+  4. main paths, each with the launch counts zeroed just before it and
+     read just after; every kernel of the path must have launched:
+     a. training: ``rank_tpu_torch.cli.main`` on ``--model=xdeepfm
+        --synthetic=200000 --num_epochs=2`` at the defaults (full width)
+        in a temporary directory; B2 must launch in every train and eval
+        step, the loss must be finite, ``best_model`` and
+        ``predictions.csv`` must exist and eval AUC must pass 0.6 (a
+        learning-sanity bar). Then ``--model=din`` at 50,000 rows: B1 must
+        launch, and the attention weights must move from their initial
+        values (their gradient flows through B1's autograd Function);
+     b. serving from ``model_dir``: ``Predictor`` serves the xDeepFM run's
+        best model through B2, held against the same weights served with
+        the plain CIN to 1e-5;
+     c. serving DIN at full width (random seeded weights, random BatchNorm
+        statistics and Dice alphas) for requests of 1, 100, 1000 and 5000
+        rows, held against the plain attention; a profiler trace of one
+        request must show B1 on the device;
   5. times on the card: each kernel, its plain version (no yardstick of
-     speed: it repeats the kernel's arithmetic in unfused torch ops) and
-     the least time the card could take (``bound_ms``), by CUDA events
-     with a cold L2; Predictor latency per request size by host clock,
-     with the kernel and the plain attention in turns.
+     speed: it repeats the kernel's arithmetic in unfused torch ops), the
+     one PyTorch call that computes the same function where there is one
+     (``library_ms``) and the least time the card could take
+     (``bound_ms``), by CUDA events with a cold L2; Predictor latency per
+     request size by host clock, kernel and plain in turns; and one
+     profiler trace of xDeepFM train steps: the top device operations and
+     the device-busy share.
 
 Then it prints one line ``{"kernels": [...]}``, the card's line and, last,
 ``{"ok": true, "device": {...}}``.
@@ -33,25 +49,35 @@ Then it prints one line ``{"kernels": [...]}``, the card's line and, last,
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
+import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 from rank_tpu_torch import WECHAT_SCHEMA, Predictor, build_model, default_config
+from rank_tpu_torch import cli
 from rank_tpu_torch.data.synthetic import make_synthetic_dataset
+from rank_tpu_torch.ops.cin import xavier_uniform_
 from rank_tpu_torch.ops.kernels import _build
+from rank_tpu_torch.ops.kernels import cin as cin_kernels
 from rank_tpu_torch.ops.kernels import din_attention as din_kernels
+from rank_tpu_torch.train import TrainConfig, Trainer
 
 SEED = 0
 TOL = dict(rtol=1e-5, atol=1e-5)
 REQUEST_ROWS = (1, 100, 1000, 5000)
+XDEEPFM_ROWS = 200_000
+DIN_ROWS = 50_000
 # Published H100 SXM peaks (NVIDIA data sheet, dense): f32 outside the
-# tensor cores, and HBM3. The bound is stated against them.
+# tensor cores, and HBM3. The bounds are stated against them.
 PEAK_F32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 
@@ -74,6 +100,12 @@ def check(ok, message: str) -> None:
         raise RuntimeError(message)
 
 
+def bound(flops: float, nbytes: float):
+    """(ms, 'bytes' | 'operations'): the larger of the two least times."""
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
 def din_inputs(b: int, gen: torch.Generator, t: int = 50, d: int = 16):
     """DIN attention inputs as the main path makes them: N(0,1) embedding
     rows, lengths uniform in [0, T] with an empty and a full row, and
@@ -92,25 +124,50 @@ def din_inputs(b: int, gen: torch.Generator, t: int = 50, d: int = 16):
 
 
 def din_bound(lengths: torch.Tensor, t: int, d: int, h1: int, h2: int):
-    """(ms, 'bytes' | 'operations'): the least time the card could take for
-    DIN attention on these inputs. Only timesteps below each row's length
-    affect the output, so only they are counted: their keys are read once,
-    and each costs the folded first layer (2*2*D*H1), the second and third
-    layers (2*H1*H2 + 2*H2) and the pool (2*D); each row adds q@w1q
-    (2*D*H1). Output written once; weights read once."""
+    """The least time for DIN attention on these inputs. Only timesteps
+    below each row's length affect the output, so only they are counted:
+    their keys are read once, and each costs the folded first layer
+    (2*2*D*H1), the second and third layers (2*H1*H2 + 2*H2) and the pool
+    (2*D); each row adds q@w1q (2*D*H1). Output written once; weights read
+    once."""
     b = lengths.numel()
     valid = int(lengths.clamp(0, t).sum())
     flops = b * 2 * d * h1 + valid * (4 * d * h1 + 2 * h1 * h2 + 2 * h2 + 2 * d)
     weights = 4 * d * h1 + h1 + h1 * h2 + 2 * h2 + 1
-    nbytes = 4 * (b * d + valid * d + b + weights + b * d)
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    return bound(flops, 4 * (b * d + valid * d + b + weights + b * d))
+
+
+def cin_inputs(b: int, layer: int, gen: torch.Generator, d: int = 16, f: int = 7, o: int = 128):
+    """One CIN layer's inputs as the default xDeepFM gives them: x0 of N(0,1)
+    embeddings, flax-xavier weights, and for layer 1 the first half of
+    layer 0's output (split_half)."""
+    x0_t = torch.randn(b, d, f, generator=gen).cuda()
+    w0 = xavier_uniform_(torch.empty(o, f, f), gen).cuda()
+    if layer == 0:
+        return x0_t, x0_t, w0
+    xk_t = cin_kernels.cin_layer_plain_t(x0_t, x0_t, w0)[..., : o // 2].contiguous()
+    w1 = xavier_uniform_(torch.empty(o, o // 2, f), gen).cuda()
+    return xk_t, x0_t, w1
+
+
+def cin_bound(xk_t: torch.Tensor, x0_t: torch.Tensor, w: torch.Tensor):
+    """The least time for one CIN layer: 2*F*O*(H + 1) FLOP a row m = (b, d)
+    in the factored form (xk @ W_all, then F multiply-accumulates); xk, x0
+    and w read once, the output written once."""
+    b, d, h = xk_t.shape
+    f, o = x0_t.shape[2], w.shape[0]
+    m = b * d
+    return bound(2 * m * f * o * (h + 1), 4 * (m * (h + f + o) + o * h * f))
 
 
 def device_ms(fn, flush: torch.Tensor) -> float:
     """Device time of one call by CUDA events, with L2 flushed first (the
-    50 MB L2 would otherwise hold the inputs)."""
+    50 MB L2 would otherwise hold the inputs). The stream then spins for
+    a few milliseconds, longer than the host takes to enqueue the plain
+    versions' dozens of ops, so the whole call is enqueued before the
+    start event fires: the time holds no host-side gap."""
     flush.zero_()
+    torch.cuda._sleep(5_000_000)  # clock cycles
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     fn()
@@ -139,9 +196,58 @@ def times_in_turns(fns, timer, runs: int = 30, warmup: int = 5):
     return times
 
 
+def device_us(e) -> float:  # renamed from cuda_time_total in newer torch
+    return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
+
+
+def profile_device(fn):
+    """(CUDA events from one traced run of ``fn``, their total device us,
+    the host operations with the most self time in us)."""
+    # Ranges that ``record_function`` marks on the device timeline (such as
+    # ``Optimizer.step#Adam.step``) span kernels listed on their own, gaps
+    # included, so they are left out of the device events.
+    with torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    ) as prof:
+        fn()
+        torch.cuda.synchronize()
+    averages = prof.key_averages()
+    events = [e for e in averages
+              if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    host = sorted((e for e in averages
+                   if getattr(e, "device_type", None) == torch.autograd.DeviceType.CPU),
+                  key=lambda e: -e.self_cpu_time_total)[:10]
+    return events, sum(device_us(e) for e in events), {e.key[:80]: e.self_cpu_time_total
+                                                       for e in host}
+
+
+def top_device(events, n: int = 8):
+    return {e.key[:80]: device_us(e) for e in sorted(events, key=lambda e: -device_us(e))[:n]}
+
+
+# -- phase 2 ------------------------------------------------------------------
+
+
+def build_kernels() -> None:
+    t0 = time.perf_counter()
+    names = ("din_attention", "cin")
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        reports = dict(zip(names, pool.map(lambda n: _build.build(n)[1], names)))
+    din_kernels.library()
+    cin_kernels.library()
+    emit(phase="build", seconds=time.perf_counter() - t0,
+         ptxas={name: [line.strip() for line in report.splitlines()
+                       if "registers" in line or "Compiling entry" in line or "spill" in line]
+                for name, report in reports.items()})
+
+
+# -- phase 3 ------------------------------------------------------------------
+
+
 def check_din_kernel(gen: torch.Generator) -> float:
-    """Phase 3: the kernel against its plain version; returns the largest
-    error at the main path's shapes (B = 256 and 8192)."""
+    """B1 against its plain version; returns the largest error at the main
+    paths' shapes (B = 256 and 8192)."""
     worst = 0.0
     for b in (1, 7, 256, 8192):
         q, k, lengths, params = din_inputs(b, gen)
@@ -160,6 +266,164 @@ def check_din_kernel(gen: torch.Generator) -> float:
     return worst
 
 
+def check_cin_kernel(gen: torch.Generator) -> float:
+    """B2 against its plain version at both layers' shapes; returns the
+    largest error. A sum of up to H*F = 448 products in another order than
+    the plain version's: at these magnitudes (outputs below ~1) it stays
+    far inside rtol = atol = 1e-5."""
+    worst = 0.0
+    for b in (1, 7, 1024, 8192):
+        for layer in (0, 1):
+            xk_t, x0_t, w = cin_inputs(b, layer, gen)
+            got = cin_kernels.cin_layer_cuda_t(xk_t, x0_t, w)
+            want = cin_kernels.cin_layer_plain_t(xk_t, x0_t, w)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            emit(phase="kernel_vs_plain", kernel="cin_layer_fwd", B=b, layer=layer,
+                 shape=[list(xk_t.shape), list(x0_t.shape), list(w.shape)],
+                 max_abs_err=err, max_abs_out=want.abs().max().item())
+            torch.testing.assert_close(got, want, **TOL)
+            worst = max(worst, err)
+    return worst
+
+
+def grads_of(fn, inputs, g):
+    leaves = [x.detach().requires_grad_() for x in inputs]
+    out = fn(*leaves)
+    return out, torch.autograd.grad(out, leaves, g)
+
+
+def check_gradients(gen: torch.Generator) -> None:
+    """Each kernel's autograd Function against autograd through the plain
+    version at B = 1024: outputs within the kernel tolerance, gradients too
+    (both backward passes recompute the plain version)."""
+    q, k, lengths, params = din_inputs(1024, gen)
+    g = torch.randn(1024, 16, generator=gen).cuda()
+    cases = {
+        "din_attention_fwd": (
+            lambda q, k, *p: din_kernels.din_attention_cuda_fn(q, k, lengths, p, True),
+            lambda q, k, *p: din_kernels.din_attention_plain(q, k, lengths, p, True),
+            (q, k, *params), g),
+    }
+    for layer in (0, 1):
+        xk_t, x0_t, w = cin_inputs(1024, layer, gen)
+        inputs = (xk_t, x0_t, w) if layer else (x0_t.clone(), x0_t, w)
+        cases[f"cin_layer_fwd/layer{layer}"] = (
+            cin_kernels.cin_layer_cuda_fn_t, cin_kernels.cin_layer_plain_t, inputs,
+            torch.randn(1024, 16, 128, generator=gen).cuda())
+    for name, (kernel_fn, plain_fn, inputs, g) in cases.items():
+        got, got_grads = grads_of(kernel_fn, inputs, g)
+        want, want_grads = grads_of(plain_fn, inputs, g)
+        torch.testing.assert_close(got, want, **TOL)
+        errs = []
+        for a, b in zip(got_grads, want_grads):
+            torch.testing.assert_close(a, b, **TOL)
+            errs.append((a - b).abs().max().item())
+        emit(phase="gradient_vs_plain", kernel=name, B=1024, max_abs_err=max(errs),
+             grads=len(errs))
+
+
+# -- phase 4 ------------------------------------------------------------------
+
+
+def read_history(output_dir: str):
+    with open(os.path.join(output_dir, "metrics_history.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def run_cli(model: str, rows: int, epochs: int, workdir: str, card: str):
+    """One CLI run at the defaults; returns (model_dir, history, launches of
+    each kernel in the run, wall seconds)."""
+    model_dir, output_dir = (os.path.join(workdir, model, d) for d in ("model_dir", "output_dir"))
+    din_kernels.din_attention_cuda.launches = 0
+    cin_kernels.cin_layer_cuda_t.launches = 0
+    t0 = time.perf_counter()
+    rc = cli.main([f"--model={model}", f"--synthetic={rows}", f"--num_epochs={epochs}",
+                   f"--model_dir={model_dir}", f"--output_dir={output_dir}"])
+    seconds = time.perf_counter() - t0
+    launches = {"din_attention_fwd": din_kernels.din_attention_cuda.launches,
+                "cin_layer_fwd": cin_kernels.cin_layer_cuda_t.launches}
+    check(rc == 0, f"the {model} CLI run exited {rc}")
+    check(os.path.exists(os.path.join(model_dir, "best_model")), f"{model}: no best_model")
+    check(os.path.exists(os.path.join(output_dir, "predictions.csv")), f"{model}: no predictions.csv")
+    history = read_history(output_dir)
+    check(len(history) == epochs, f"{model}: {len(history)} epochs in the history")
+    for h in history:
+        check(all(math.isfinite(h[k]) for k in ("train_loss", "eval_loss", "eval_auc")),
+              f"{model}: non-finite metrics {h}")
+        emit(phase="train_epoch", model=model, rows=rows, epoch=h["epoch"],
+             train_loss=h["train_loss"], train_auc=h["train_auc"], eval_loss=h["eval_loss"],
+             eval_auc=h["eval_auc"], train_examples_per_s=h["train_examples_per_s"], card=card)
+    emit(phase="train_run", model=model, rows=rows, epochs=epochs, seconds=seconds,
+         launches=launches)
+    return model_dir, history, launches
+
+
+def steps_of(rows: int, batch_size: int = 1024):
+    """(train steps, eval steps) an epoch for the CLI's 85/15 split."""
+    n_train = int(rows * 0.85)
+    return -(-n_train // batch_size), -(-(rows - n_train) // batch_size)
+
+
+def train_xdeepfm(workdir: str, card: str):
+    model_dir, history, launches = run_cli("xdeepfm", XDEEPFM_ROWS, 2, workdir, card)
+    train_steps, eval_steps = steps_of(XDEEPFM_ROWS)
+    layers = len(default_config("xdeepfm").cin_layer_sizes)
+    # every train step of both epochs, and 3 eval passes (one an epoch and
+    # the best model's): B2 ran in training and in eval
+    want = layers * (2 * train_steps + 3 * eval_steps)
+    check(launches["cin_layer_fwd"] == want,
+          f"xdeepfm launched cin_layer_fwd {launches['cin_layer_fwd']} times, want {want}")
+    best_auc = max(h["eval_auc"] for h in history)
+    check(best_auc > 0.6, f"xdeepfm eval AUC {best_auc} is not above 0.6")
+    return model_dir, launches["cin_layer_fwd"]
+
+
+def train_din(workdir: str, card: str):
+    model_dir, history, launches = run_cli("din", DIN_ROWS, 2, workdir, card)
+    train_steps, eval_steps = steps_of(DIN_ROWS)
+    want = 2 * train_steps + 3 * eval_steps
+    check(launches["din_attention_fwd"] == want,
+          f"din launched din_attention_fwd {launches['din_attention_fwd']} times, want {want}")
+    # the trainer draws the model from a generator seeded with its seed
+    cfg = default_config("din")
+    initial = build_model(WECHAT_SCHEMA, cfg, device="cuda",
+                          generator=torch.Generator().manual_seed(TrainConfig.seed))
+    trained = torch.load(os.path.join(model_dir, "best_model"), map_location="cuda",
+                         weights_only=True)
+    moved = {}
+    for name in ("w1", "b1", "w2", "b2", "w3", "b3"):
+        before = getattr(initial.attention, name).detach()
+        moved[name] = (trained[f"attention.{name}"] - before).abs().max().item()
+    emit(phase="din_attention_trained", max_abs_change=moved)
+    # b3 shifts every valid score alike, which the softmax cancels: its
+    # gradient is rounding noise, so it is reported and not held to a bar.
+    # The rest move by Adam steps of the order of the learning rate.
+    check(all(moved[name] > 1e-3 for name in ("w1", "b1", "w2", "b2", "w3")),
+          f"attention weights that did not move in training: {moved}")
+    return launches["din_attention_fwd"]
+
+
+def serve_xdeepfm(model_dir: str) -> None:
+    cfg = default_config("xdeepfm")
+    pred = Predictor(WECHAT_SCHEMA, cfg, model_dir=model_dir)
+    plain = Predictor(WECHAT_SCHEMA, cfg, model_dir=model_dir)
+    plain.model.cin.backend = "jnp"
+    data = make_synthetic_dataset(WECHAT_SCHEMA, num_rows=5000, seed=SEED + 1)
+    cin_kernels.cin_layer_cuda_t.launches = 0
+    answers = {n: pred({k: v[:n] for k, v in data.items()})["score"] for n in (1, 1000, 5000)}
+    launches = cin_kernels.cin_layer_cuda_t.launches
+    check(launches == 2 * len(answers), f"xdeepfm serving launched cin_layer_fwd {launches} times")
+    for n, got in answers.items():
+        want = plain({k: v[:n] for k, v in data.items()})["score"]
+        err = float(np.max(np.abs(got - want)))
+        emit(phase="serve_model_dir", model="xdeepfm", rows=n, max_abs_err_vs_plain=err,
+             mean_score=float(got.mean()), launches=launches)
+        check(got.shape == (n,) and np.all(np.isfinite(got)) and np.all((got > 0) & (got < 1)),
+              f"{n} rows: scores not finite, of the wrong shape or outside (0, 1)")
+        np.testing.assert_allclose(got, want, **TOL)
+
+
 def randomize_eval_state(model: torch.nn.Module, gen: torch.Generator) -> None:
     """Random non-trivial BatchNorm statistics and affine parameters and
     Dice alphas, so eval-mode BatchNorm and Dice do real work."""
@@ -174,6 +438,113 @@ def randomize_eval_state(model: torch.nn.Module, gen: torch.Generator) -> None:
                 tensor.copy_(torch.randn(tensor.shape, generator=gen) * 0.5)
             elif leaf == "weight" and "BatchNorm" in name:
                 tensor.copy_(torch.randn(tensor.shape, generator=gen) * 0.5 + 1.0)
+
+
+def serve_din(gen: torch.Generator, card: str):
+    """Slice 1's path: full-width DIN served by Predictor; then its latency."""
+    cfg = default_config("din")
+    model = build_model(WECHAT_SCHEMA, cfg, device="cuda", generator=gen)
+    randomize_eval_state(model, gen)
+    state_dict = model.state_dict()
+    pred = Predictor(WECHAT_SCHEMA, cfg, state_dict=state_dict)
+    plain_pred = Predictor(WECHAT_SCHEMA, cfg.replace(kernel_backend="jnp"), state_dict=state_dict)
+    data = make_synthetic_dataset(WECHAT_SCHEMA, num_rows=max(REQUEST_ROWS), seed=SEED)
+    requests = {n: {k: v[:n] for k, v in data.items() if k != "labels"} for n in REQUEST_ROWS}
+
+    din_kernels.din_attention_cuda.launches = 0
+    answers = {n: pred(req)["score"] for n, req in requests.items()}
+    launches = din_kernels.din_attention_cuda.launches
+    check(launches == len(REQUEST_ROWS), f"DIN serving launched din_attention_fwd {launches} times")
+    for n, got in answers.items():
+        want = plain_pred(requests[n])["score"]
+        err = float(np.max(np.abs(got - want)))
+        emit(phase="serve_din", rows=n, max_abs_err_vs_plain=err, mean_score=float(got.mean()),
+             launches=launches)
+        check(got.shape == (n,) and got.dtype == np.float32,
+              f"{n} rows: scores of shape {got.shape} and type {got.dtype}")
+        check(np.all(np.isfinite(got)) and np.all((got > 0) & (got < 1)),
+              f"{n} rows: scores not finite or outside (0, 1)")
+        np.testing.assert_allclose(got, want, **TOL)
+
+    big = requests[max(REQUEST_ROWS)]
+    events, device_total_us, _ = profile_device(lambda: pred(big))
+    names = [e.key for e in events]
+    check(any("din_attention_fwd_kernel" in name for name in names),
+          f"din_attention_fwd_kernel not among the CUDA kernels traced: {names}")
+    emit(phase="profile_serve_din", rows=max(REQUEST_ROWS), device_us=top_device(events),
+         device_us_total=device_total_us, device_launches=sum(e.count for e in events))
+
+    latency = {}
+    for n, req in requests.items():
+        both = times_in_turns([lambda: pred(req), lambda: plain_pred(req)], host_ms, runs=30)
+        for attention, lat in zip(("kernel", "plain"), both):
+            emit(phase="predictor_latency", attention=attention, rows=n, requests=len(lat),
+                 median_ms=statistics.median(lat), p90_ms=float(np.percentile(lat, 90)),
+                 card=card)
+        latency[n] = statistics.median(both[0])
+    # the traced request's device time against the untraced latency (the
+    # profiler itself slows the host several times over)
+    emit(phase="device_busy_serve_din", rows=max(REQUEST_ROWS),
+         share=device_total_us / 1e3 / latency[max(REQUEST_ROWS)], card=card)
+
+
+# -- phase 5 ------------------------------------------------------------------
+
+
+def time_kernels(gen: torch.Generator, card: str):
+    """Kernel, plain, library and bound times by CUDA events, cold L2."""
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    timings = {}
+    for b in (256, 1024, 8192):
+        q, k, lengths, params = din_inputs(b, gen)
+        kernel_ms, plain_ms = map(statistics.median, times_in_turns(
+            [lambda: din_kernels.din_attention_cuda(q, k, lengths, params, True),
+             lambda: din_kernels.din_attention_plain(q, k, lengths, params, True)],
+            lambda fn: device_ms(fn, flush), runs=20))
+        bound_ms, bound_by = din_bound(lengths, 50, 16, 64, 32)
+        timings["din_attention_fwd", b] = (kernel_ms, plain_ms, bound_ms, bound_by, None)
+        emit(phase="time", kernel="din_attention_fwd", B=b, ms=kernel_ms,
+             plain_ms_no_yardstick=plain_ms, bound_ms=bound_ms, bound_by=bound_by, card=card)
+    for b in (1024, 8192):
+        xk_t, x0_t, w = cin_inputs(b, 1, gen)
+        kernel_ms, plain_ms, library_ms = map(statistics.median, times_in_turns(
+            [lambda: cin_kernels.cin_layer_cuda_t(xk_t, x0_t, w),
+             lambda: cin_kernels.cin_layer_plain_t(xk_t, x0_t, w),
+             lambda: torch.einsum("bdh,bdf,ohf->bdo", xk_t, x0_t, w)],
+            lambda fn: device_ms(fn, flush), runs=20))
+        bound_ms, bound_by = cin_bound(xk_t, x0_t, w)
+        timings["cin_layer_fwd", b] = (kernel_ms, plain_ms, bound_ms, bound_by, library_ms)
+        emit(phase="time", kernel="cin_layer_fwd", B=b, layer=1, ms=kernel_ms,
+             plain_ms_no_yardstick=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+             bound_by=bound_by, card=card)
+    return timings
+
+
+def profile_xdeepfm_step(card: str) -> None:
+    """Where the time of an xDeepFM train step goes (B = 1024, full width):
+    untraced step time by host clock over synchronised steps, then one
+    trace of the same steps."""
+    trainer = Trainer(WECHAT_SCHEMA, default_config("xdeepfm"), TrainConfig(log_every=0))
+    state = trainer.init_state()
+    data = make_synthetic_dataset(WECHAT_SCHEMA, num_rows=1024, seed=SEED + 2)
+    data["_valid"] = np.ones(1024, np.float32)
+    batch = trainer.to_device(data)
+    meters = trainer.meters_init()
+    steps = 10
+
+    def run():
+        for _ in range(steps):
+            trainer.train_step(state, meters, batch)
+        torch.cuda.synchronize()
+
+    run()  # warm-up
+    step_ms = statistics.median(host_ms(run) for _ in range(5)) / steps
+    events, device_total_us, host_top = profile_device(run)
+    emit(phase="profile_train_xdeepfm", batch=1024, steps=steps, step_ms=step_ms,
+         examples_per_s=1024 / step_ms * 1e3, device_us_per_step=device_total_us / steps,
+         device_busy_share=device_total_us / 1e3 / (step_ms * steps),
+         device_launches_per_step=sum(e.count for e in events) / steps,
+         top_device_us=top_device(events, 12), top_host_self_us=host_top, card=card)
 
 
 def main() -> int:
@@ -191,103 +562,42 @@ def main() -> int:
          torch=torch.__version__, cuda=torch.version.cuda)
 
     # 2. build
-    t0 = time.perf_counter()
-    _, report = _build.build("din_attention")
-    din_kernels.library()
-    emit(phase="build", kernel="din_attention_fwd", seconds=time.perf_counter() - t0,
-         ptxas=[line.strip() for line in report.splitlines()
-                if "registers" in line or "Compiling entry" in line])
+    build_kernels()
 
     # 3. kernels against their plain versions
     gen = torch.Generator().manual_seed(SEED)
-    max_abs_err = check_din_kernel(gen)
+    din_err = check_din_kernel(gen)
+    cin_err = check_cin_kernel(gen)
+    check_gradients(gen)
 
-    # 4. main path: full-width DIN served by Predictor
-    cfg = default_config("din")
-    model = build_model(WECHAT_SCHEMA, cfg, device="cuda", generator=gen)
-    randomize_eval_state(model, gen)
-    state_dict = model.state_dict()
-    pred = Predictor(WECHAT_SCHEMA, cfg, state_dict=state_dict)
-    plain_pred = Predictor(WECHAT_SCHEMA, cfg.replace(kernel_backend="jnp"), state_dict=state_dict)
-    data = make_synthetic_dataset(WECHAT_SCHEMA, num_rows=max(REQUEST_ROWS), seed=SEED)
-    requests = {n: {k: v[:n] for k, v in data.items() if k != "labels"} for n in REQUEST_ROWS}
-
-    din_kernels.din_attention_cuda.launches = 0
-    answers = {n: pred(req)["score"] for n, req in requests.items()}
-    launches = din_kernels.din_attention_cuda.launches
-    check(launches > 0, "the main path never launched din_attention_fwd")
-    for n, got in answers.items():
-        want = plain_pred(requests[n])["score"]
-        err = float(np.max(np.abs(got - want)))
-        emit(phase="main_path", rows=n, max_abs_err_vs_plain=err,
-             mean_score=float(got.mean()))
-        check(got.shape == (n,) and got.dtype == np.float32,
-              f"{n} rows: scores of shape {got.shape} and type {got.dtype}")
-        check(np.all(np.isfinite(got)) and np.all((got > 0) & (got < 1)),
-              f"{n} rows: scores not finite or outside (0, 1)")
-        np.testing.assert_allclose(got, want, **TOL)
-
-    with torch.profiler.profile(
-        activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    ) as prof:
-        traced_ms = host_ms(lambda: pred(requests[max(REQUEST_ROWS)]))
-    device_events = [e for e in prof.key_averages()
-                     if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
-    names = [e.key for e in device_events]
-    check(any("din_attention_fwd_kernel" in name for name in names),
-          f"din_attention_fwd_kernel not among the CUDA kernels traced: {names}")
-
-    def device_us(e) -> float:  # renamed from cuda_time_total in newer torch
-        return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
-
-    top = sorted(device_events, key=lambda e: -device_us(e))[:8]
-    device_total_us = sum(device_us(e) for e in device_events)
-    emit(phase="profile", rows=max(REQUEST_ROWS),
-         device_us={e.key[:80]: device_us(e) for e in top},
-         device_us_total=device_total_us, device_launches=sum(e.count for e in device_events),
-         traced_request_ms=traced_ms)
+    # 4. main paths
+    with tempfile.TemporaryDirectory() as workdir:
+        xdeepfm_dir, cin_launches = train_xdeepfm(workdir, card)
+        din_launches = train_din(workdir, card)
+        serve_xdeepfm(xdeepfm_dir)
+    serve_din(gen, card)
 
     # 5. times on the card
-    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
-    timings = {}
-    for b in (256, 8192):
-        q, k, lengths, params = din_inputs(b, gen)
-        kernel_ms, plain_ms = map(statistics.median, times_in_turns(
-            [lambda: din_kernels.din_attention_cuda(q, k, lengths, params, True),
-             lambda: din_kernels.din_attention_plain(q, k, lengths, params, True)],
-            lambda fn: device_ms(fn, flush)))
-        bound_ms, bound_by = din_bound(lengths, 50, 16, 64, 32)
-        timings[b] = (kernel_ms, plain_ms, bound_ms, bound_by)
-        emit(phase="time", kernel="din_attention_fwd", B=b, ms=kernel_ms,
-             plain_ms_no_yardstick=plain_ms, bound_ms=bound_ms, bound_by=bound_by, card=card)
-    kernel_latency = {}
-    for n, req in requests.items():
-        # 100 requests each: p90 is then the highest percentile with ten beyond it
-        both = times_in_turns([lambda: pred(req), lambda: plain_pred(req)], host_ms, runs=100)
-        for attention, lat in zip(("kernel", "plain"), both):
-            emit(phase="predictor_latency", attention=attention, rows=n, requests=len(lat),
-                 median_ms=statistics.median(lat), p90_ms=float(np.percentile(lat, 90)),
-                 card=card)
-        kernel_latency[n] = statistics.median(both[0])
-    # the traced request's device time against the untraced latency (the
-    # profiler itself slows the host several times over)
-    emit(phase="device_busy", rows=max(REQUEST_ROWS),
-         share=device_total_us / 1e3 / kernel_latency[max(REQUEST_ROWS)], card=card)
+    timings = time_kernels(gen, card)
+    profile_xdeepfm_step(card)
 
-    kernel_ms, plain_ms, bound_ms, bound_by = timings[8192]
-    emit(kernels=[{
-        "name": "din_attention_fwd",
-        "route": "cuda",
-        "source": "rank_tpu_torch/ops/kernels/csrc/din_attention.cu",
-        "replaces": "rank_tpu/ops/pallas/din_attention.py:156",
-        "launches": launches,
-        "max_abs_err": max_abs_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": None,  # no single PyTorch call computes DIN attention
-    }])
+    rows = []
+    for name, source, replaces, launches, err in (
+        ("din_attention_fwd", "rank_tpu_torch/ops/kernels/csrc/din_attention.cu",
+         "rank_tpu/ops/pallas/din_attention.py:156", din_launches, din_err),
+        ("cin_layer_fwd", "rank_tpu_torch/ops/kernels/csrc/cin.cu",
+         "rank_tpu/ops/pallas/cin.py:140", cin_launches, cin_err),
+    ):
+        # B = 1024: the batch of the training path
+        kernel_ms, plain_ms, bound_ms, bound_by, library_ms = timings[name, 1024]
+        rows.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            # B1: no single PyTorch call computes DIN attention; B2: one einsum
+            "library_ms": library_ms,
+        })
+    emit(kernels=rows)
     print(card, flush=True)
     emit(ok=True, device={"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                           "count": torch.cuda.device_count()})

@@ -3,8 +3,9 @@
 A second package beside ``rank_tpu`` (the JAX reference, which stays as
 it is). It imports torch and numpy, never JAX, flax or ``rank_tpu``.
 Module names mirror ``rank_tpu``'s so each counterpart is easy to find.
-Entry points (``build_model``, ``Predictor``) run on the card unless the
-caller passes ``device="cpu"``; with no CUDA device they raise.
+Entry points (``build_model``, ``Predictor``, ``train.Trainer`` and the
+CLI, ``python -m rank_tpu_torch.cli``) run on the card unless the caller
+passes ``device="cpu"`` (``--device=cpu``); with no CUDA device they raise.
 """
 
 from .features import WECHAT_SCHEMA, FeatureSchema, tiny_schema

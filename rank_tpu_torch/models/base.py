@@ -9,12 +9,12 @@ models not ported yet are carried and ignored.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
-from ..embedding.collection import EmbeddingCollection
+from ..embedding.collection import INITIALIZERS, EmbeddingCollection
 from ..features import FeatureSchema
 from ..ops.mlp import dense_layer
 
@@ -109,9 +109,9 @@ class ModelConfig:
     seq_feature: str = "his_read_comment_7d_seq"
     # embedding lookup schedule; the port has the plain gather only
     embedding_mode: str = "gspmd"
-    # DIN attention: 'auto' runs the CUDA kernel on the card and the plain
-    # version on the CPU; 'pallas' asks for the kernel, 'jnp' for the
-    # plain version (ops/attention.py)
+    # DIN attention and xDeepFM's CIN: 'auto' runs the CUDA kernel on the
+    # card and the plain version on the CPU; 'pallas' asks for the kernel,
+    # 'jnp' for the plain version (ops/attention.py, ops/cin.py)
     kernel_backend: str = "auto"
 
     def replace(self, **kw) -> "ModelConfig":
@@ -139,6 +139,27 @@ class RankModel(nn.Module):
     def dense(self, fan_in: int, features: int, generator: Optional[torch.Generator]) -> nn.Linear:
         """nn.Linear honouring ``cfg.dense_init`` (ops/mlp.py)."""
         return dense_layer(fan_in, features, self.cfg.dense_init, generator)
+
+    def uniform_tables(
+        self,
+        fields: Sequence[str],
+        dim: int,
+        prefix: str,
+        generator: Optional[torch.Generator],
+    ) -> Dict[str, nn.Embedding]:
+        """One table of width ``dim`` per field (FM-family models), drawn
+        with ``cfg.embedding_init`` and registered as ``{prefix}_{field}``,
+        the flax module name."""
+        init = INITIALIZERS[self.cfg.embedding_init]
+        tables = {}
+        for name in fields:
+            vocab = self.schema.categorical_feature(name).vocab_size
+            table = nn.Embedding.from_pretrained(
+                init(torch.empty(vocab, dim), generator), freeze=False
+            )
+            self.add_module(f"{prefix}_{name}", table)
+            tables[name] = table
+        return tables
 
     def tower_field_dims(self) -> List[int]:
         """Widths of ``tower_field_embeddings``' outputs, in order."""

@@ -13,11 +13,15 @@ import torch
 
 from ..features import FeatureSchema
 from .base import ModelConfig, RankModel
+from .cross_family import XDeepFM
 from .sequence import DIN
 
 MODEL_CLASSES: Dict[str, Type[RankModel]] = {
     "din": DIN,
+    "xdeepfm": XDeepFM,
 }
+
+MULTI_TASK_MODELS = {"esmm", "mmoe", "ple"}
 
 # Best-AUC hyperparameters from each model's result.md sweep (BASELINE.md).
 DEFAULT_CONFIGS: Dict[str, ModelConfig] = {

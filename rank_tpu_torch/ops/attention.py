@@ -47,6 +47,8 @@ class DINAttention(nn.Module):
       * ``'pallas'``: the kernel (the JAX package's name for its kernel
         backend); raises on CPU tensors;
       * ``'jnp'``: the plain torch version, on any device.
+    Both kernel backends train through ``DINAttentionFn``, whose backward
+    recomputes through the plain version.
     """
 
     def __init__(
@@ -82,7 +84,7 @@ class DINAttention(nn.Module):
 
         fn = {
             "auto": kernels.din_attention,
-            "pallas": kernels.din_attention_cuda,
+            "pallas": kernels.din_attention_cuda_fn,
             "jnp": kernels.din_attention_plain,
         }[self.backend]
         params = (self.w1, self.b1, self.w2, self.b2, self.w3, self.b3)

@@ -1,0 +1,133 @@
+"""Fused CIN layer: the hand-written CUDA kernel and its plain version.
+
+Port of the Pallas TPU kernel ``rank_tpu/ops/pallas/cin.py``
+(``cin_layer_fused_t``). One layer of xDeepFM's Compressed Interaction
+Network in the transposed layout, with m = (b, d):
+
+    (B, D, H), (B, D, F), w (O, H, F) -> (B, D, O)
+    out[m, o] = sum_f x0[m, f] * sum_h xk[m, h] * w[o, h, f]
+
+The kernel lives in ``csrc/cin.cu``; its header says what bounds it on an
+H100 and how its design answers that.
+
+  * ``cin_layer_cuda_t``: launches the kernel; contiguous f32 CUDA tensors
+    only; raises on anything else. ``cin_layer_cuda_t.launches`` counts its
+    launches.
+  * ``cin_layer_plain_t``: the same function in plain torch ops (the JAX
+    ``_reference_t``), the oracle the kernel is held against.
+  * ``CINLayerFn``: the ``torch.autograd.Function`` around a forward
+    implementation. Its backward recomputes through the plain version, as
+    the JAX kernel's ``_bwd`` (``rank_tpu/ops/pallas/cin.py:149``) does:
+    there is no backward kernel.
+  * ``cin_layer_t``: the kernel, through ``CINLayerFn``, for CUDA tensors;
+    the plain version for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+_lib = None
+
+
+def library() -> ctypes.CDLL:
+    """Build (at first use) and load the kernel's shared library."""
+    global _lib
+    if _lib is None:
+        lib = _build.load("cin")
+        lib.cin_layer_fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        lib.cin_layer_fwd.restype = ctypes.c_int
+        lib.cin_layer_error_string.argtypes = [ctypes.c_int]
+        lib.cin_layer_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def cin_layer_plain_t(xk_t: torch.Tensor, x0_t: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(B, D, H), (B, D, F), (O, H, F) -> (B, D, O); the JAX ``_reference_t``
+    math, which builds the (B, H, F, D) pair tensor."""
+    z = torch.einsum("bdh,bdf->bhfd", xk_t, x0_t)
+    return torch.einsum("bhfd,ohf->bdo", z, w)
+
+
+def cin_layer_cuda_t(xk_t: torch.Tensor, x0_t: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Launch the CUDA kernel; raises unless every input is a contiguous f32
+    CUDA tensor on one device with matching shapes."""
+    named = {"xk_t": xk_t, "x0_t": x0_t, "w": w}
+    for name, x in named.items():
+        if x.device.type != "cuda" or x.device != xk_t.device:
+            raise ValueError(
+                f"cin_layer_cuda_t needs every input on one CUDA device; "
+                f"{name} is on {x.device}, xk_t on {xk_t.device}"
+            )
+        if x.dtype != torch.float32:
+            raise TypeError(f"cin_layer_cuda_t: {name} is {x.dtype}, needs torch.float32")
+        if x.dim() != 3:
+            raise ValueError(f"cin_layer_cuda_t: {name} has shape {tuple(x.shape)}, needs 3 dims")
+        if not x.is_contiguous():
+            raise ValueError(f"cin_layer_cuda_t: {name} is not contiguous")
+    b, d, h = xk_t.shape
+    f = x0_t.shape[2]
+    o = w.shape[0]
+    if tuple(x0_t.shape[:2]) != (b, d) or tuple(w.shape) != (o, h, f):
+        raise ValueError(
+            f"cin_layer_cuda_t: shapes xk_t {tuple(xk_t.shape)}, x0_t {tuple(x0_t.shape)}, "
+            f"w {tuple(w.shape)} do not make (B, D, H), (B, D, F), (O, H, F)"
+        )
+    out = torch.empty((b, d, o), dtype=torch.float32, device=xk_t.device)
+    if b * d == 0:
+        return out
+    # B operand of the GEMM: row h*F + f, column o
+    wt = w.permute(1, 2, 0).reshape(h * f, o).contiguous()
+    lib = library()
+    stream = torch.cuda.current_stream(xk_t.device).cuda_stream
+    err = lib.cin_layer_fwd(
+        xk_t.data_ptr(), x0_t.data_ptr(), wt.data_ptr(), out.data_ptr(),
+        b * d, h, f, o, xk_t.device.index, stream,
+    )
+    if err != 0:
+        raise RuntimeError(
+            f"cin_layer_fwd launch failed: {lib.cin_layer_error_string(err).decode()} "
+            f"(B={b}, D={d}, H={h}, F={f}, O={o})"
+        )
+    cin_layer_cuda_t.launches += 1
+    return out
+
+
+cin_layer_cuda_t.launches = 0
+
+
+class CINLayerFn(torch.autograd.Function):
+    """``forward_fn`` in the forward pass (``cin_layer_cuda_t`` on the card);
+    the backward pass recomputes ``cin_layer_plain_t`` under autograd.
+    Taking ``forward_fn`` as an argument lets a CPU test run this backward
+    with the plain forward."""
+
+    @staticmethod
+    def forward(ctx, forward_fn, xk_t, x0_t, w):
+        ctx.save_for_backward(xk_t, x0_t, w)
+        return forward_fn(xk_t, x0_t, w)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        with torch.enable_grad():
+            inputs = [x.detach().requires_grad_() for x in ctx.saved_tensors]
+            grads = torch.autograd.grad(cin_layer_plain_t(*inputs), inputs, grad_out)
+        return (None, *grads)
+
+
+def cin_layer_cuda_fn_t(xk_t: torch.Tensor, x0_t: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The kernel with its gradient: ``cin_layer_cuda_t`` through ``CINLayerFn``."""
+    return CINLayerFn.apply(cin_layer_cuda_t, xk_t, x0_t, w)
+
+
+def cin_layer_t(xk_t: torch.Tensor, x0_t: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The kernel, with its gradient, for CUDA tensors; the plain version for
+    CPU tensors."""
+    if xk_t.device.type == "cpu":
+        return cin_layer_plain_t(xk_t, x0_t, w)
+    return cin_layer_cuda_fn_t(xk_t, x0_t, w)

@@ -9,12 +9,13 @@ its header says what bounds it on an H100 and how its design answers that.
     ``din_attention_cuda.launches`` counts its launches.
   * ``din_attention_plain``: the same function in plain torch ops (the
     JAX ``DINAttention`` 'jnp' math), the oracle the kernel is held against.
-  * ``din_attention``: the kernel for CUDA tensors, the plain version for
-    CPU tensors.
-
-Forward only: the training slice wraps the kernel in a
-``torch.autograd.Function`` whose backward recomputes through the plain
-version, as the JAX kernel's ``_bwd`` does.
+  * ``DINAttentionFn``: the ``torch.autograd.Function`` around a forward
+    implementation (the kernel on the card). Its backward recomputes
+    through the plain version, as the JAX kernel's ``_bwd``
+    (``rank_tpu/ops/pallas/din_attention.py:165``) does: there is no
+    backward kernel.
+  * ``din_attention``: the kernel, through ``DINAttentionFn``, for CUDA
+    tensors; the plain version for CPU tensors.
 """
 
 from __future__ import annotations
@@ -130,6 +131,35 @@ def din_attention_cuda(
 din_attention_cuda.launches = 0
 
 
+class DINAttentionFn(torch.autograd.Function):
+    """``forward_fn`` in the forward pass (``din_attention_cuda`` on the
+    card); the backward pass recomputes ``din_attention_plain`` under
+    autograd and returns the gradients of query, keys and the six params.
+    ``lengths`` gets none. Taking ``forward_fn`` as an argument lets a CPU
+    test run this backward with the plain forward."""
+
+    @staticmethod
+    def forward(ctx, forward_fn, use_softmax, query, keys, lengths, *params):
+        ctx.use_softmax = use_softmax
+        ctx.save_for_backward(query, keys, lengths, *params)
+        return forward_fn(query, keys, lengths, params, use_softmax)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        query, keys, lengths, *params = ctx.saved_tensors
+        with torch.enable_grad():
+            inputs = [x.detach().requires_grad_() for x in (query, keys, *params)]
+            out = din_attention_plain(inputs[0], inputs[1], lengths, inputs[2:], ctx.use_softmax)
+            grads = torch.autograd.grad(out, inputs, grad_out)
+        return (None, None, grads[0], grads[1], None, *grads[2:])
+
+
+def din_attention_cuda_fn(query, keys, lengths, params, use_softmax) -> torch.Tensor:
+    """The kernel with its gradient: ``din_attention_cuda`` through
+    ``DINAttentionFn``."""
+    return DINAttentionFn.apply(din_attention_cuda, use_softmax, query, keys, lengths, *params)
+
+
 def din_attention(
     query: torch.Tensor,
     keys: torch.Tensor,
@@ -137,7 +167,8 @@ def din_attention(
     params: Sequence[torch.Tensor],
     use_softmax: bool,
 ) -> torch.Tensor:
-    """The kernel for CUDA tensors; the plain version for CPU tensors."""
+    """The kernel, with its gradient, for CUDA tensors; the plain version
+    for CPU tensors."""
     if keys.device.type == "cpu":
         return din_attention_plain(query, keys, lengths, params, use_softmax)
-    return din_attention_cuda(query, keys, lengths, params, use_softmax)
+    return din_attention_cuda_fn(query, keys, lengths, params, use_softmax)

@@ -7,8 +7,8 @@
 
 Layers are registered under the flax module names (``Dense_i``,
 ``BatchNorm_i``, ``Dice_i``, ``PReLU_i``) so ``interop.py`` maps the JAX
-package's variables mechanically. BatchNorm uses eps 1e-5 and torch
-momentum 0.01, which is flax's decay 0.99.
+package's variables mechanically. BatchNorm (``activations.BatchNorm``)
+uses eps 1e-5 and flax's decay 0.99, and trains as flax's does.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from .activations import Dice, PReLU, batch_norm_last, leaky_relu
+from .activations import BatchNorm, Dice, PReLU, batch_norm_last, leaky_relu
 
 # standard deviation of a unit normal truncated to [-2, 2]; flax's
 # lecun_normal divides by it so the truncated draw keeps variance 1/fan_in
@@ -89,7 +89,7 @@ class MLPTower(nn.Module):
         self.order = order
         # (dense, activation, batch norm or None, dropout or None) per layer;
         # the modules themselves are registered under their flax names
-        self._layers: List[Tuple[nn.Linear, Callable, Optional[nn.BatchNorm1d], Optional[nn.Dropout]]] = []
+        self._layers: List[Tuple[nn.Linear, Callable, Optional[BatchNorm], Optional[nn.Dropout]]] = []
         width_in = in_features
         for i, width in enumerate(hidden_units):
             dense = dense_layer(width_in, width, dense_init, generator)
@@ -103,7 +103,7 @@ class MLPTower(nn.Module):
                 self.add_module(f"{type(act).__name__}_{i}", act)
             norm = None
             if batch_norm:
-                norm = nn.BatchNorm1d(width, eps=1e-5, momentum=0.01)
+                norm = BatchNorm(width)
                 self.add_module(f"BatchNorm_{i}", norm)
             drop = None
             if dropout_rate > 0:

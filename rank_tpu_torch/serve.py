@@ -5,8 +5,9 @@ Requests are padded up to the nearest power-of-two bucket (>= min_bucket)
 by repeating row 0, so the kernels see a handful of shapes, as the JAX
 package's compiled programs do.
 
-Not ported yet: reading ``model_dir`` (waits for the checkpoint port),
-``weights_dtype``, ``export_serving_artifact`` and multi-task heads.
+``model_dir`` is read as the port's CLI writes it: the ``best_model``
+state dict (``train/checkpoint.py``). Not ported yet: ``weights_dtype``,
+``export_serving_artifact`` and multi-task heads.
 """
 
 from __future__ import annotations
@@ -18,7 +19,8 @@ import torch
 
 from .features import FeatureSchema
 from .models.base import ModelConfig
-from .models.registry import build_model
+from .models.registry import build_model, resolve_device
+from .train.checkpoint import CheckpointManager
 
 
 def _bucket(n: int, min_bucket: int) -> int:
@@ -39,20 +41,22 @@ class Predictor:
         device="cuda",
     ):
         """``state_dict`` is the port's counterpart of the JAX Predictor's
-        ``variables=`` (``interop.state_dict_from_flax`` converts them)."""
+        ``variables=`` (``interop.state_dict_from_flax`` converts them);
+        without it, the best model saved in ``model_dir`` is served."""
+        self.device = resolve_device(device)
         if state_dict is None:
-            if model_dir is not None:
-                raise NotImplementedError(
-                    "reading model_dir waits for the checkpoint port; pass state_dict="
-                )
-            raise ValueError("need model_dir or state_dict")
+            if model_dir is None:
+                raise ValueError("need model_dir or state_dict")
+            mgr = CheckpointManager(model_dir)
+            if not mgr.has_best():
+                raise FileNotFoundError(f"no best_model in {mgr.model_dir}")
+            state_dict = mgr.load_best_state_dict(self.device)
         self.schema = schema
         self.model_cfg = model_cfg
         self.min_bucket = min_bucket
-        self.model = build_model(schema, model_cfg, device=device)
+        self.model = build_model(schema, model_cfg, device=self.device)
         self.model.load_state_dict(state_dict)
         self.model.eval()
-        self.device = torch.device(device)
 
     def __call__(self, batch: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
         """batch: loader-layout feature dict (no labels required).

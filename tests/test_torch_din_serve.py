@@ -192,11 +192,24 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         Predictor(schema, cfg, state_dict=state_dict)
 
 
-def test_unported_model_and_model_dir_raise():
+def test_unported_model_and_model_dir_raise(tmp_path):
+    """An unported model raises; ``model_dir`` serves the saved best model
+    (it raised before the checkpoint port) and a directory without one
+    raises."""
+    from rank_tpu_torch.train import CheckpointManager
+
     with pytest.raises(NotImplementedError, match="not ported"):
         build_model(tiny_schema(), default_config("dcn"), device="cpu")
-    with pytest.raises(NotImplementedError, match="model_dir"):
-        Predictor(tiny_schema(), default_config("din"), model_dir="ckpt", device="cpu")
+    schema, cfg = tiny_schema(), default_config("din", hidden_units=(8,))
+    model = build_model(schema, cfg, device="cpu", generator=torch.Generator().manual_seed(3))
+    CheckpointManager(str(tmp_path / "ckpt")).save_best({"model": model})
+    request = {k: v for k, v in make_synthetic_dataset(schema, num_rows=5).items() if k != "labels"}
+    got = Predictor(schema, cfg, model_dir=str(tmp_path / "ckpt"), device="cpu")(request)
+    want = Predictor(schema, cfg, state_dict=model.state_dict(), device="cpu")(request)
+    np.testing.assert_array_equal(got["score"], want["score"])
+    with pytest.raises(FileNotFoundError, match="best_model"):
+        Predictor(schema, cfg, model_dir=str(tmp_path / "empty"), device="cpu")
+    assert not (tmp_path / "empty").exists()
 
 
 def _imported_modules(path: Path):
@@ -217,7 +230,8 @@ def test_port_imports_nothing_of_jax():
 
     code = (
         "import sys; before = set(sys.modules); "
-        "import rank_tpu_torch, rank_tpu_torch.interop, rank_tpu_torch.ops.kernels.din_attention; "
+        "import rank_tpu_torch, rank_tpu_torch.interop, rank_tpu_torch.ops.kernels.din_attention, "
+        "rank_tpu_torch.cli, rank_tpu_torch.train.loop, rank_tpu_torch.ops.kernels.cin; "
         "new = {m.split('.')[0] for m in set(sys.modules) - before}; "
         "assert not new & {'jax', 'flax', 'rank_tpu'}, new"
     )
