@@ -11,12 +11,19 @@ Phases; any failure raises and the script exits non-zero:
   2. build: compiles every hand-written kernel from the sources in the
      checkout, one ``nvcc`` per source, all started together, and prints
      the build time and the compiler's register and shared-memory report;
+     then ``cuobjdump -sass`` of each library counts the tensor-core
+     instructions (HMMA, HGMMA) of each kernel, and fails if a kernel has
+     none;
   3. kernels vs plain: each kernel against its plain torch version on the
      card, within rtol/atol 1e-5: B1 (DIN attention) at B in {1, 7, 256,
-     8192}, both softmax modes; B2 (one CIN layer) at both layers' shapes
-     of the default xDeepFM and B in {1, 7, 1024, 8192}; and for both, the
-     gradients through their autograd Function against autograd through
-     the plain version, at B = 1024;
+     1024, 8192}, lengths that include 0, 1, 15, 16, 17, 49 and 50, both
+     softmax modes, and at D in {8, 32, 64} (the kernel's other
+     instantiations); B2 (one CIN layer) at both layers' shapes of the
+     default xDeepFM and B in {1, 7, 256, 1001, 1024, 8192} (B = 1001: rows
+     that are not a multiple of the block's row tile), one shape whose H
+     and O need padding and one with O over three output tiles; and for
+     both, the gradients through their autograd Function against autograd
+     through the plain version, at B = 1024;
   4. main paths, each with the launch counts zeroed just before it and
      read just after; every kernel of the path must have launched:
      a. training: ``rank_tpu_torch.cli.main`` on ``--model=xdeepfm
@@ -37,9 +44,13 @@ Phases; any failure raises and the script exits non-zero:
   5. times on the card: each kernel, its plain version (no yardstick of
      speed: it repeats the kernel's arithmetic in unfused torch ops), the
      one PyTorch call that computes the same function where there is one
-     (``library_ms``) and the least time the card could take
-     (``bound_ms``), by CUDA events with a cold L2; Predictor latency per
-     request size by host clock, kernel and plain in turns; and one
+     (``library_ms``) and the least time the card could take, in f32
+     outside the tensor cores (``bound_ms``) and through the tensor cores
+     in 3xTF32 (``bound_tc_ms``; ``bound_mma_sync_ms`` at the mma.sync TF32
+     rate measured first by ``csrc/mma_ceiling.cu``), by CUDA events with
+     a cold L2, at B in {256, 1024, 8192} (B2: both layers); Predictor
+     latency per request size by host clock, kernel and plain in turns;
+     and one
      profiler trace of xDeepFM train steps: the top device operations and
      the device-busy share.
 
@@ -50,9 +61,11 @@ Then it prints one line ``{"kernels": [...]}``, the card's line and, last,
 from __future__ import annotations
 
 import concurrent.futures
+import ctypes
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -77,9 +90,18 @@ REQUEST_ROWS = (1, 100, 1000, 5000)
 XDEEPFM_ROWS = 200_000
 DIN_ROWS = 50_000
 # Published H100 SXM peaks (NVIDIA data sheet, dense): f32 outside the
-# tensor cores, and HBM3. The bounds are stated against them.
+# tensor cores, TF32 on the tensor cores, and HBM3. The bounds are stated
+# against them.
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_HBM_BYTES = 3.35e12
+# The kernels' B values at the main paths' shapes, and the lengths around
+# B1's 16-row tiles that every B1 check holds.
+TIMED_B = (256, 1024, 8192)
+RAGGED_LENGTHS = (0, 1, 15, 16, 17, 49, 50)
+# (H, F, O) of B2 checks beside the default xDeepFM's layers: H and O that
+# the kernel pads, and O over three 128-wide output tiles, the last partial.
+OTHER_CIN_SHAPES = {"padded": (12, 5, 10), "wide": (64, 7, 300)}
 
 
 def card_line() -> str:
@@ -101,21 +123,46 @@ def check(ok, message: str) -> None:
 
 
 def bound(flops: float, nbytes: float):
-    """(ms, 'bytes' | 'operations'): the larger of the two least times."""
+    """(ms, 'bytes' | 'operations'): the larger of the two least times, in
+    f32 outside the tensor cores."""
     t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def bound_tc(product_flops: float, f32_flops: float, nbytes: float,
+             tf32_flops: float = PEAK_TF32_FLOPS) -> float:
+    """The least time through the tensor cores in 3xTF32, ms: three TF32
+    products for each product FLOP at ``tf32_flops``, the rest in f32, or
+    the bytes, whichever is longer."""
+    t_ops = (3 * product_flops / tf32_flops + f32_flops / PEAK_F32_FLOPS) * 1e3
+    return max(t_ops, nbytes / PEAK_HBM_BYTES * 1e3)
+
+
+def bounds(f32_flops: float, product_flops: float, rest_flops: float, nbytes: float,
+           mma_sync_tflops: float) -> dict:
+    """A kernel's least times, ms: in f32 outside the tensor cores
+    (``bound_ms``, with what bounds it), through the tensor cores in
+    3xTF32 at the published TF32 peak (``bound_tc_ms``), and the same at
+    the mma.sync rate measured on this card (``bound_mma_sync_ms``)."""
+    ms, by = bound(f32_flops, nbytes)
+    return {"bound_ms": ms, "bound_by": by,
+            "bound_tc_ms": bound_tc(product_flops, rest_flops, nbytes),
+            "bound_mma_sync_ms": bound_tc(product_flops, rest_flops, nbytes,
+                                          mma_sync_tflops * 1e12)}
+
+
 def din_inputs(b: int, gen: torch.Generator, t: int = 50, d: int = 16):
     """DIN attention inputs as the main path makes them: N(0,1) embedding
-    rows, lengths uniform in [0, T] with an empty and a full row, and
-    lecun-scaled weights with random biases."""
+    rows, lengths uniform in [0, T] with a full last row and, in the first
+    rows, the lengths of ``RAGGED_LENGTHS``, and lecun-scaled weights with
+    random biases."""
     q = torch.randn(b, d, generator=gen)
     k = torch.randn(b, t, d, generator=gen)
     lengths = torch.randint(0, t + 1, (b,), generator=gen, dtype=torch.int32)
     lengths[-1] = t
     if b > 1:
-        lengths[0] = 0
+        ragged = torch.tensor(RAGGED_LENGTHS[: b], dtype=torch.int32).clamp(max=t)
+        lengths[: len(ragged)] = ragged
     shapes = [(4 * d, 64), (64,), (64, 32), (32,), (32, 1), (1,)]
     params = [torch.randn(s, generator=gen) * (s[0] ** -0.5 if len(s) == 2 else 0.3)
               for s in shapes]
@@ -123,24 +170,33 @@ def din_inputs(b: int, gen: torch.Generator, t: int = 50, d: int = 16):
     return cuda(q), cuda(k), cuda(lengths), tuple(map(cuda, params))
 
 
-def din_bound(lengths: torch.Tensor, t: int, d: int, h1: int, h2: int):
+def din_bound(lengths: torch.Tensor, t: int, d: int, h1: int, h2: int,
+              mma_sync_tflops: float) -> dict:
     """The least time for DIN attention on these inputs. Only timesteps
     below each row's length affect the output, so only they are counted:
     their keys are read once, and each costs the folded first layer
     (2*2*D*H1), the second and third layers (2*H1*H2 + 2*H2) and the pool
     (2*D); each row adds q@w1q (2*D*H1). Output written once; weights read
-    once."""
+    once. On the tensor cores the products are the folded first layer and
+    the second layer (``bounds``)."""
     b = lengths.numel()
     valid = int(lengths.clamp(0, t).sum())
-    flops = b * 2 * d * h1 + valid * (4 * d * h1 + 2 * h1 * h2 + 2 * h2 + 2 * d)
+    products = valid * (4 * d * h1 + 2 * h1 * h2)
+    rest = b * 2 * d * h1 + valid * (2 * h2 + 2 * d)
     weights = 4 * d * h1 + h1 + h1 * h2 + 2 * h2 + 1
-    return bound(flops, 4 * (b * d + valid * d + b + weights + b * d))
+    nbytes = 4 * (b * d + valid * d + b + weights + b * d)
+    return bounds(products + rest, products, rest, nbytes, mma_sync_tflops)
 
 
-def cin_inputs(b: int, layer: int, gen: torch.Generator, d: int = 16, f: int = 7, o: int = 128):
+def cin_inputs(b: int, layer, gen: torch.Generator, d: int = 16, f: int = 7, o: int = 128):
     """One CIN layer's inputs as the default xDeepFM gives them: x0 of N(0,1)
     embeddings, flax-xavier weights, and for layer 1 the first half of
-    layer 0's output (split_half)."""
+    layer 0's output (split_half). A named layer of ``OTHER_CIN_SHAPES``
+    takes random inputs of its (H, F, O)."""
+    if layer in OTHER_CIN_SHAPES:
+        h, f, o = OTHER_CIN_SHAPES[layer]
+        xk_t, x0_t = torch.randn(b, d, h, generator=gen), torch.randn(b, d, f, generator=gen)
+        return xk_t.cuda(), x0_t.cuda(), xavier_uniform_(torch.empty(o, h, f), gen).cuda()
     x0_t = torch.randn(b, d, f, generator=gen).cuda()
     w0 = xavier_uniform_(torch.empty(o, f, f), gen).cuda()
     if layer == 0:
@@ -150,14 +206,19 @@ def cin_inputs(b: int, layer: int, gen: torch.Generator, d: int = 16, f: int = 7
     return xk_t, x0_t, w1
 
 
-def cin_bound(xk_t: torch.Tensor, x0_t: torch.Tensor, w: torch.Tensor):
+def cin_bound(xk_t: torch.Tensor, x0_t: torch.Tensor, w: torch.Tensor,
+              mma_sync_tflops: float) -> dict:
     """The least time for one CIN layer: 2*F*O*(H + 1) FLOP a row m = (b, d)
     in the factored form (xk @ W_all, then F multiply-accumulates); xk, x0
-    and w read once, the output written once."""
+    and w read once, the output written once. On the tensor cores
+    (``bounds``) the product is the GEMM over K = H*F, 2*H*F*O FLOP a row,
+    and forming A costs H*F multiplies."""
     b, d, h = xk_t.shape
     f, o = x0_t.shape[2], w.shape[0]
     m = b * d
-    return bound(2 * m * f * o * (h + 1), 4 * (m * (h + f + o) + o * h * f))
+    nbytes = 4 * (m * (h + f + o) + o * h * f)
+    return bounds(2 * m * f * o * (h + 1), 2 * m * h * f * o, m * h * f, nbytes,
+                  mma_sync_tflops)
 
 
 def device_ms(fn, flush: torch.Tensor) -> float:
@@ -231,7 +292,8 @@ def top_device(events, n: int = 8):
 
 def build_kernels() -> None:
     t0 = time.perf_counter()
-    names = ("din_attention", "cin")
+    kernels = ("din_attention", "cin")
+    names = kernels + ("mma_ceiling",)
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         reports = dict(zip(names, pool.map(lambda n: _build.build(n)[1], names)))
     din_kernels.library()
@@ -240,28 +302,91 @@ def build_kernels() -> None:
          ptxas={name: [line.strip() for line in report.splitlines()
                        if "registers" in line or "Compiling entry" in line or "spill" in line]
                 for name, report in reports.items()})
+    for name in kernels:
+        check_tensor_cores(name)
+
+
+def check_tensor_cores(name: str) -> None:
+    """Count the tensor-core instructions in the SASS of each kernel of a
+    library (``cuobjdump``, beside ``nvcc`` in the toolkit); fail if a
+    kernel has none."""
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(_build.library_path(name))],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    counts = {}
+    for function in re.split(r"\n\s*Function : ", sass)[1:]:
+        kernel = function.split("\n", 1)[0].strip()
+        counts[kernel] = {op: len(re.findall(rf"\b{op}\b", function)) for op in ("HMMA", "HGMMA")}
+    emit(phase="tensor_cores", library=name, sass_counts=counts)
+    check(counts, f"{name}: no kernel found in the SASS")
+    for kernel, c in counts.items():
+        check(c["HMMA"] + c["HGMMA"] > 0, f"{name}: {kernel} has no tensor-core instruction")
+
+
+def mma_sync_ceiling(card: str) -> float:
+    """TFLOP/s of mma.sync m16n8k8 in TF32 on this card
+    (``csrc/mma_ceiling.cu``): 4 blocks of 8 warps on each SM, each warp 8
+    independent products a round; the fastest of 5 timed runs."""
+    lib = _build.load("mma_ceiling")
+    lib.mma_tf32_ceiling.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.mma_tf32_ceiling.restype = ctypes.c_int
+    blocks, iters = 4 * torch.cuda.get_device_properties(0).multi_processor_count, 4096
+    out = torch.empty(blocks * 256, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run(n):
+        check(lib.mma_tf32_ceiling(out.data_ptr(), blocks, n, 0, stream) == 0,
+              "mma_tf32_ceiling launch failed")
+
+    run(16)
+    times = []
+    for _ in range(5):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        run(iters)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    tflops = blocks * 8 * iters * 8 * 2048 / (min(times) * 1e-3) / 1e12
+    emit(phase="mma_sync_tf32_ceiling", tflops=tflops, ms=min(times), blocks=blocks, card=card)
+    return tflops
 
 
 # -- phase 3 ------------------------------------------------------------------
 
 
+def errors_vs_f64(got: torch.Tensor, want: torch.Tensor, exact: torch.Tensor) -> dict:
+    """The kernel's and the plain f32 version's largest and mean errors
+    against the same function in f64, and the largest share of the
+    rtol/atol allowance the kernel uses against the plain version."""
+    kernel, plain = (got.double() - exact).abs(), (want.double() - exact).abs()
+    allowed = TOL["atol"] + TOL["rtol"] * want.double().abs()
+    return {"kernel_vs_f64": [kernel.max().item(), kernel.mean().item()],
+            "plain_vs_f64": [plain.max().item(), plain.mean().item()],
+            "tolerance_used": ((got - want).double().abs() / allowed).max().item()}
+
+
 def check_din_kernel(gen: torch.Generator) -> float:
     """B1 against its plain version; returns the largest error at the main
-    paths' shapes (B = 256 and 8192)."""
+    paths' shapes (D = 16, B = 256, 1024 and 8192)."""
     worst = 0.0
-    for b in (1, 7, 256, 8192):
-        q, k, lengths, params = din_inputs(b, gen)
+    cases = [(b, 16) for b in (1, 7) + TIMED_B] + [(256, d) for d in (8, 32, 64)]
+    for b, d in cases:
+        q, k, lengths, params = din_inputs(b, gen, d=d)
         for use_softmax in (False, True):
             got = din_kernels.din_attention_cuda(q, k, lengths, params, use_softmax)
             want = din_kernels.din_attention_plain(q, k, lengths, params, use_softmax)
+            exact = din_kernels.din_attention_plain(
+                q.double(), k.double(), lengths, [p.double() for p in params], use_softmax)
             torch.cuda.synchronize()
             err = (got - want).abs().max().item()
-            emit(phase="kernel_vs_plain", kernel="din_attention_fwd", B=b,
-                 use_softmax=use_softmax, max_abs_err=err)
+            emit(phase="kernel_vs_plain", kernel="din_attention_fwd", B=b, D=d,
+                 use_softmax=use_softmax, max_abs_err=err, **errors_vs_f64(got, want, exact),
+                 lengths=lengths[: len(RAGGED_LENGTHS)].tolist())
             torch.testing.assert_close(got, want, **TOL)
             if b > 1:
                 check(torch.all(got[0] == 0), "a zero-length row must pool to zeros")
-            if b >= 256:
+            if b >= 256 and d == 16:
                 worst = max(worst, err)
     return worst
 
@@ -269,21 +394,25 @@ def check_din_kernel(gen: torch.Generator) -> float:
 def check_cin_kernel(gen: torch.Generator) -> float:
     """B2 against its plain version at both layers' shapes; returns the
     largest error. A sum of up to H*F = 448 products in another order than
-    the plain version's: at these magnitudes (outputs below ~1) it stays
-    far inside rtol = atol = 1e-5."""
+    the plain version's, each in 3xTF32, whose error is of the order of an
+    f32 product's (tests/test_torch_tensor_core_operands.py): at these
+    magnitudes (outputs up to a few units) it stays far inside rtol = atol
+    = 1e-5."""
     worst = 0.0
-    for b in (1, 7, 1024, 8192):
-        for layer in (0, 1):
-            xk_t, x0_t, w = cin_inputs(b, layer, gen)
-            got = cin_kernels.cin_layer_cuda_t(xk_t, x0_t, w)
-            want = cin_kernels.cin_layer_plain_t(xk_t, x0_t, w)
-            torch.cuda.synchronize()
-            err = (got - want).abs().max().item()
-            emit(phase="kernel_vs_plain", kernel="cin_layer_fwd", B=b, layer=layer,
-                 shape=[list(xk_t.shape), list(x0_t.shape), list(w.shape)],
-                 max_abs_err=err, max_abs_out=want.abs().max().item())
-            torch.testing.assert_close(got, want, **TOL)
-            worst = max(worst, err)
+    cases = [(b, layer) for b in (1, 7, 256, 1001, 1024, 8192) for layer in (0, 1)]
+    for b, layer in cases + [(7, name) for name in OTHER_CIN_SHAPES]:
+        xk_t, x0_t, w = cin_inputs(b, layer, gen)
+        got = cin_kernels.cin_layer_cuda_t(xk_t, x0_t, w)
+        want = cin_kernels.cin_layer_plain_t(xk_t, x0_t, w)
+        exact = cin_kernels.cin_layer_plain_t(xk_t.double(), x0_t.double(), w.double())
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        emit(phase="kernel_vs_plain", kernel="cin_layer_fwd", B=b, layer=layer,
+             shape=[list(xk_t.shape), list(x0_t.shape), list(w.shape)],
+             max_abs_err=err, max_abs_out=want.abs().max().item(),
+             **errors_vs_f64(got, want, exact))
+        torch.testing.assert_close(got, want, **TOL)
+        worst = max(worst, err)
     return worst
 
 
@@ -491,32 +620,34 @@ def serve_din(gen: torch.Generator, card: str):
 # -- phase 5 ------------------------------------------------------------------
 
 
-def time_kernels(gen: torch.Generator, card: str):
+def time_kernels(gen: torch.Generator, card: str, mma_sync_tflops: float):
     """Kernel, plain, library and bound times by CUDA events, cold L2."""
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     timings = {}
-    for b in (256, 1024, 8192):
+    for b in TIMED_B:
         q, k, lengths, params = din_inputs(b, gen)
         kernel_ms, plain_ms = map(statistics.median, times_in_turns(
             [lambda: din_kernels.din_attention_cuda(q, k, lengths, params, True),
              lambda: din_kernels.din_attention_plain(q, k, lengths, params, True)],
             lambda fn: device_ms(fn, flush), runs=20))
-        bound_ms, bound_by = din_bound(lengths, 50, 16, 64, 32)
-        timings["din_attention_fwd", b] = (kernel_ms, plain_ms, bound_ms, bound_by, None)
+        least = din_bound(lengths, 50, 16, 64, 32, mma_sync_tflops)
+        timings["din_attention_fwd", b] = dict(ms=kernel_ms, plain_ms=plain_ms,
+                                               library_ms=None, **least)
         emit(phase="time", kernel="din_attention_fwd", B=b, ms=kernel_ms,
-             plain_ms_no_yardstick=plain_ms, bound_ms=bound_ms, bound_by=bound_by, card=card)
-    for b in (1024, 8192):
-        xk_t, x0_t, w = cin_inputs(b, 1, gen)
-        kernel_ms, plain_ms, library_ms = map(statistics.median, times_in_turns(
-            [lambda: cin_kernels.cin_layer_cuda_t(xk_t, x0_t, w),
-             lambda: cin_kernels.cin_layer_plain_t(xk_t, x0_t, w),
-             lambda: torch.einsum("bdh,bdf,ohf->bdo", xk_t, x0_t, w)],
-            lambda fn: device_ms(fn, flush), runs=20))
-        bound_ms, bound_by = cin_bound(xk_t, x0_t, w)
-        timings["cin_layer_fwd", b] = (kernel_ms, plain_ms, bound_ms, bound_by, library_ms)
-        emit(phase="time", kernel="cin_layer_fwd", B=b, layer=1, ms=kernel_ms,
-             plain_ms_no_yardstick=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-             bound_by=bound_by, card=card)
+             plain_ms_no_yardstick=plain_ms, **least, card=card)
+    for b in TIMED_B:
+        for layer in (0, 1):
+            xk_t, x0_t, w = cin_inputs(b, layer, gen)
+            kernel_ms, plain_ms, library_ms = map(statistics.median, times_in_turns(
+                [lambda: cin_kernels.cin_layer_cuda_t(xk_t, x0_t, w),
+                 lambda: cin_kernels.cin_layer_plain_t(xk_t, x0_t, w),
+                 lambda: torch.einsum("bdh,bdf,ohf->bdo", xk_t, x0_t, w)],
+                lambda fn: device_ms(fn, flush), runs=20))
+            least = cin_bound(xk_t, x0_t, w, mma_sync_tflops)
+            timings[f"cin_layer_fwd/layer{layer}", b] = dict(
+                ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms, **least)
+            emit(phase="time", kernel="cin_layer_fwd", B=b, layer=layer, ms=kernel_ms,
+                 plain_ms_no_yardstick=plain_ms, library_ms=library_ms, **least, card=card)
     return timings
 
 
@@ -578,24 +709,26 @@ def main() -> int:
     serve_din(gen, card)
 
     # 5. times on the card
-    timings = time_kernels(gen, card)
+    timings = time_kernels(gen, card, mma_sync_ceiling(card))
     profile_xdeepfm_step(card)
 
     rows = []
-    for name, source, replaces, launches, err in (
-        ("din_attention_fwd", "rank_tpu_torch/ops/kernels/csrc/din_attention.cu",
+    for name, timed, source, replaces, launches, err in (
+        ("din_attention_fwd", "din_attention_fwd",
+         "rank_tpu_torch/ops/kernels/csrc/din_attention.cu",
          "rank_tpu/ops/pallas/din_attention.py:156", din_launches, din_err),
-        ("cin_layer_fwd", "rank_tpu_torch/ops/kernels/csrc/cin.cu",
+        ("cin_layer_fwd", "cin_layer_fwd/layer1", "rank_tpu_torch/ops/kernels/csrc/cin.cu",
          "rank_tpu/ops/pallas/cin.py:140", cin_launches, cin_err),
     ):
-        # B = 1024: the batch of the training path
-        kernel_ms, plain_ms, bound_ms, bound_by, library_ms = timings[name, 1024]
+        # B = 1024: the batch of the training path; B2 at its heavier layer.
+        # library_ms: none for B1 (no single PyTorch call computes DIN
+        # attention); B2: one einsum.
+        t = timings[timed, 1024]
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches, "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            # B1: no single PyTorch call computes DIN attention; B2: one einsum
-            "library_ms": library_ms,
+            "launches": launches, "max_abs_err": err,
+            **{key: t[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "bound_tc_ms",
+                                       "library_ms")},
         })
     emit(kernels=rows)
     print(card, flush=True)

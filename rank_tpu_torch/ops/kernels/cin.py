@@ -12,7 +12,8 @@ H100 and how its design answers that.
 
   * ``cin_layer_cuda_t``: launches the kernel; contiguous f32 CUDA tensors
     only; raises on anything else. ``cin_layer_cuda_t.launches`` counts its
-    launches.
+    launches. It hands the kernel the weights as ``weight_operand`` lays
+    them out: the GEMM's B operand with K ordered (f, h) and H padded to 8.
   * ``cin_layer_plain_t``: the same function in plain torch ops (the JAX
     ``_reference_t``), the oracle the kernel is held against.
   * ``CINLayerFn``: the ``torch.autograd.Function`` around a forward
@@ -30,6 +31,11 @@ import ctypes
 import torch
 
 from . import _build
+
+# Widths the kernel's shared memory holds: 128 staged rows of H (padded)
+# and of F floats beside a 3-stage ring of B chunks.
+MAX_H = 256
+MAX_F = 64
 
 _lib = None
 
@@ -54,9 +60,47 @@ def cin_layer_plain_t(xk_t: torch.Tensor, x0_t: torch.Tensor, w: torch.Tensor) -
     return torch.einsum("bhfd,ohf->bdo", z, w)
 
 
+def padded_h(h: int) -> int:
+    """H rounded up to 8: a k-step of the kernel is 8 consecutive h under one f."""
+    return -(-h // 8) * 8
+
+
+def weight_operand(w: torch.Tensor) -> torch.Tensor:
+    """(O, H, F) -> the kernel's B operand (F*Hp, Op): row f*Hp + h holds
+    w[:, h, f], with K ordered (f, h); zero in the padding rows (h >= H) and
+    columns (o >= O). Hp is H rounded up to 8, Op is O rounded up to 4 (rows
+    of whole 16-byte copies)."""
+    o, h, f = w.shape
+    hp, op = padded_h(h), -(-o // 4) * 4
+    wop = w.new_zeros((f, hp, op))
+    wop[:, :h, :o] = w.permute(2, 1, 0)
+    return wop.reshape(f * hp, op)
+
+
+def check_kernel_shapes(xk_t: torch.Tensor, x0_t: torch.Tensor, w: torch.Tensor) -> None:
+    """Raise unless the shapes make (B, D, H), (B, D, F), (O, H, F) with
+    H <= MAX_H and F <= MAX_F, the widths the kernel's shared memory holds."""
+    for name, x in (("xk_t", xk_t), ("x0_t", x0_t), ("w", w)):
+        if x.dim() != 3:
+            raise ValueError(f"cin_layer_cuda_t: {name} has shape {tuple(x.shape)}, needs 3 dims")
+    b, d, h = xk_t.shape
+    f, o = x0_t.shape[2], w.shape[0]
+    if tuple(x0_t.shape[:2]) != (b, d) or tuple(w.shape) != (o, h, f):
+        raise ValueError(
+            f"cin_layer_cuda_t: shapes xk_t {tuple(xk_t.shape)}, x0_t {tuple(x0_t.shape)}, "
+            f"w {tuple(w.shape)} do not make (B, D, H), (B, D, F), (O, H, F)"
+        )
+    if not (1 <= h <= MAX_H and 1 <= f <= MAX_F and o >= 1):
+        raise ValueError(
+            f"cin_layer_cuda_t: H={h}, F={f}, O={o}; the kernel takes 1 <= H <= {MAX_H}, "
+            f"1 <= F <= {MAX_F}, O >= 1"
+        )
+
+
 def cin_layer_cuda_t(xk_t: torch.Tensor, x0_t: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA kernel; raises unless every input is a contiguous f32
-    CUDA tensor on one device with matching shapes."""
+    CUDA tensor on one device with shapes the kernel takes."""
+    check_kernel_shapes(xk_t, x0_t, w)
     named = {"xk_t": xk_t, "x0_t": x0_t, "w": w}
     for name, x in named.items():
         if x.device.type != "cuda" or x.device != xk_t.device:
@@ -66,27 +110,19 @@ def cin_layer_cuda_t(xk_t: torch.Tensor, x0_t: torch.Tensor, w: torch.Tensor) ->
             )
         if x.dtype != torch.float32:
             raise TypeError(f"cin_layer_cuda_t: {name} is {x.dtype}, needs torch.float32")
-        if x.dim() != 3:
-            raise ValueError(f"cin_layer_cuda_t: {name} has shape {tuple(x.shape)}, needs 3 dims")
         if not x.is_contiguous():
             raise ValueError(f"cin_layer_cuda_t: {name} is not contiguous")
     b, d, h = xk_t.shape
     f = x0_t.shape[2]
     o = w.shape[0]
-    if tuple(x0_t.shape[:2]) != (b, d) or tuple(w.shape) != (o, h, f):
-        raise ValueError(
-            f"cin_layer_cuda_t: shapes xk_t {tuple(xk_t.shape)}, x0_t {tuple(x0_t.shape)}, "
-            f"w {tuple(w.shape)} do not make (B, D, H), (B, D, F), (O, H, F)"
-        )
     out = torch.empty((b, d, o), dtype=torch.float32, device=xk_t.device)
     if b * d == 0:
         return out
-    # B operand of the GEMM: row h*F + f, column o
-    wt = w.permute(1, 2, 0).reshape(h * f, o).contiguous()
+    wop = weight_operand(w)
     lib = library()
     stream = torch.cuda.current_stream(xk_t.device).cuda_stream
     err = lib.cin_layer_fwd(
-        xk_t.data_ptr(), x0_t.data_ptr(), wt.data_ptr(), out.data_ptr(),
+        xk_t.data_ptr(), x0_t.data_ptr(), wop.data_ptr(), out.data_ptr(),
         b * d, h, f, o, xk_t.device.index, stream,
     )
     if err != 0:

@@ -5,7 +5,8 @@ Port of the Pallas TPU kernel ``rank_tpu/ops/pallas/din_attention.py``
 its header says what bounds it on an H100 and how its design answers that.
 
   * ``din_attention_cuda``: launches the kernel; CUDA tensors only, f32
-    inputs and int32 lengths, contiguous; raises on anything else.
+    inputs and int32 lengths, contiguous, D in ``KERNEL_DIMS`` and hidden
+    widths ``KERNEL_HIDDEN``; raises on anything else.
     ``din_attention_cuda.launches`` counts its launches.
   * ``din_attention_plain``: the same function in plain torch ops (the
     JAX ``DINAttention`` 'jnp' math), the oracle the kernel is held against.
@@ -28,6 +29,11 @@ import torch
 
 from . import _build
 from ..attention import MASK_NEG, length_mask, masked_softmax
+
+# The kernel's instantiations: D is a template parameter, and the hidden
+# widths are those DINAttention is built with (rank_tpu/ops/attention.py).
+KERNEL_DIMS = (8, 16, 32, 64)
+KERNEL_HIDDEN = (64, 32)
 
 _lib = None
 
@@ -72,6 +78,31 @@ def din_attention_plain(
     return torch.einsum("bt,btd->bd", weights, keys)
 
 
+def check_kernel_shapes(query, keys, lengths, params) -> None:
+    """Raise unless the shapes match keys (B, T, D) with D in KERNEL_DIMS and
+    hidden widths KERNEL_HIDDEN, the instantiations the kernel has."""
+    w1, b1, w2, b2, w3, b3 = params
+    if keys.dim() != 3 or w2.dim() != 2:
+        raise ValueError(f"din_attention_cuda: keys {tuple(keys.shape)} and w2 "
+                         f"{tuple(w2.shape)} need 3 and 2 dims")
+    b, t, d = keys.shape
+    h1, h2 = w2.shape
+    named = {"query": query, "lengths": lengths, "w1": w1, "b1": b1, "b2": b2, "w3": w3, "b3": b3}
+    shapes = {"query": (b, d), "lengths": (b,), "w1": (4 * d, h1), "b1": (h1,),
+              "b2": (h2,), "w3": (h2, 1), "b3": (1,)}
+    for name, shape in shapes.items():
+        if tuple(named[name].shape) != shape:
+            raise ValueError(
+                f"din_attention_cuda: {name} has shape {tuple(named[name].shape)}, "
+                f"needs {shape} for keys of shape {tuple(keys.shape)}"
+            )
+    if d not in KERNEL_DIMS or (h1, h2) != KERNEL_HIDDEN:
+        raise ValueError(
+            f"din_attention_cuda: D={d}, hidden widths ({h1}, {h2}); the kernel takes "
+            f"D in {KERNEL_DIMS} and hidden widths {KERNEL_HIDDEN}"
+        )
+
+
 def din_attention_cuda(
     query: torch.Tensor,
     keys: torch.Tensor,
@@ -81,6 +112,7 @@ def din_attention_cuda(
 ) -> torch.Tensor:
     """Launch the CUDA kernel; raises unless every input is a contiguous
     CUDA tensor on one device with the kernel's dtypes and shapes."""
+    check_kernel_shapes(query, keys, lengths, params)
     w1, b1, w2, b2, w3, b3 = params
     named = {"query": query, "keys": keys, "lengths": lengths, "w1": w1, "b1": b1,
              "w2": w2, "b2": b2, "w3": w3, "b3": b3}
@@ -95,18 +127,10 @@ def din_attention_cuda(
             raise TypeError(f"din_attention_cuda: {name} is {x.dtype}, needs {want}")
         if not x.is_contiguous():
             raise ValueError(f"din_attention_cuda: {name} is not contiguous")
+    if keys.data_ptr() % 16:
+        raise ValueError("din_attention_cuda: keys must start on a 16-byte boundary")
     b, t, d = keys.shape
     h1, h2 = w2.shape
-    shapes = {"query": (b, d), "lengths": (b,), "w1": (4 * d, h1), "b1": (h1,),
-              "b2": (h2,), "w3": (h2, 1), "b3": (1,)}
-    for name, shape in shapes.items():
-        if tuple(named[name].shape) != shape:
-            raise ValueError(
-                f"din_attention_cuda: {name} has shape {tuple(named[name].shape)}, "
-                f"needs {shape} for keys of shape {tuple(keys.shape)}"
-            )
-    if h2 > 64:
-        raise ValueError(f"din_attention_cuda: second hidden width {h2} > 64")
     out = torch.empty((b, d), dtype=torch.float32, device=query.device)
     if b == 0:
         return out
