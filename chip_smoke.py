@@ -41,6 +41,19 @@ Phases; any failure raises and the script exits non-zero:
         statistics and Dice alphas) for requests of 1, 100, 1000 and 5000
         rows, held against the plain attention; a profiler trace of one
         request must show B1 on the device;
+     d. the rest of the single-task zoo (slice 4: afm, autoint, bst, dcn,
+        deepcrossing, deepfm, dien, ffm, fibinet, flen, fwfm, pnn,
+        widedeep), which runs no hand-written kernel: each trains through
+        ``cli.main`` at ``default_config`` on the full schema
+        (``--synthetic=100000 --num_epochs=1``); the loss must be finite,
+        ``best_model`` and ``predictions.csv`` must exist, and where the
+        JAX package's record passes 0.7 eval AUC must pass 0.6. Then
+        ``Predictor(model_dir=...)`` serves requests of 1, 1000 and 5000
+        rows on the card, held against the same best model served on the
+        CPU (the card's own arithmetic): f32 models to 1e-5, BST and
+        AutoInt at their bf16 defaults to the probability bar of
+        ``tests/test_torch_zoo_forward.py`` (0.05), and BST once more at
+        f32, to 1e-5; and its latency at 1000 rows;
   5. times on the card: each kernel, its plain version (no yardstick of
      speed: it repeats the kernel's arithmetic in unfused torch ops), the
      one PyTorch call that computes the same function where there is one
@@ -50,9 +63,9 @@ Phases; any failure raises and the script exits non-zero:
      rate measured first by ``csrc/mma_ceiling.cu``), by CUDA events with
      a cold L2, at B in {256, 1024, 8192} (B2: both layers); Predictor
      latency per request size by host clock, kernel and plain in turns;
-     and one
-     profiler trace of xDeepFM train steps: the top device operations and
-     the device-busy share.
+     and profiler traces of xDeepFM, BST and DIEN train steps (B = 1024):
+     step time, the top device operations, launches a step and the
+     device-busy share.
 
 Then it prints one line ``{"kernels": [...]}``, the card's line and, last,
 ``{"ok": true, "device": {...}}``.
@@ -89,6 +102,19 @@ TOL = dict(rtol=1e-5, atol=1e-5)
 REQUEST_ROWS = (1, 100, 1000, 5000)
 XDEEPFM_ROWS = 200_000
 DIN_ROWS = 50_000
+# slice 4: the single-task models without a hand-written kernel, trained
+# one epoch each; the JAX package's synthetic record (RESULTS_synthetic.md)
+# passes 0.7 eval AUC for those of ZOO_AUC_BAR. DeepFM, FwFM, FFM and PNN
+# see no dense features and sit near 0.5 there, so theirs is printed only.
+ZOO_MODELS = ("afm", "autoint", "bst", "dcn", "deepcrossing", "deepfm", "dien", "ffm",
+              "fibinet", "flen", "fwfm", "pnn", "widedeep")
+ZOO_AUC_BAR = ("afm", "autoint", "bst", "dcn", "deepcrossing", "dien", "fibinet", "flen")
+ZOO_ROWS = 100_000
+ZOO_REQUEST_ROWS = (1, 1000, 5000)
+# card against CPU at the bf16 defaults of BST and AutoInt: the probability
+# bar of tests/test_torch_zoo_forward.py (BF16_BAR)
+BF16_PROB_ATOL = 0.05
+F32_TRANSFORMER = dict(transformer_dtype="float32", transformer_score_dtype="float32")
 # Published H100 SXM peaks (NVIDIA data sheet, dense): f32 outside the
 # tensor cores, TF32 on the tensor cores, and HBM3. The bounds are stated
 # against them.
@@ -617,6 +643,53 @@ def serve_din(gen: torch.Generator, card: str):
          share=device_total_us / 1e3 / latency[max(REQUEST_ROWS)], card=card)
 
 
+def serve_against_cpu(model: str, cfg, model_dir: str, requests, atol: float, rtol: float,
+                      card: str) -> None:
+    """Serve ``model_dir``'s best model on the card and on the CPU; the
+    card's scores must match within the tolerance. A probability may
+    saturate to 0 or 1 in f32 (DCN's cross terms grow with the square of
+    the dense features), so the scores are held to [0, 1]."""
+    pred = Predictor(WECHAT_SCHEMA, cfg, model_dir=model_dir)
+    cpu = Predictor(WECHAT_SCHEMA, cfg, model_dir=model_dir, device="cpu")
+    dtype = cfg.transformer_dtype if model in ("bst", "autoint") else "float32"
+    for n, req in requests.items():
+        got, want = pred(req)["score"], cpu(req)["score"]
+        check(got.shape == (n,) and got.dtype == np.float32
+              and np.all(np.isfinite(got)) and np.all((got >= 0) & (got <= 1)),
+              f"{model}, {n} rows: scores not finite, of the wrong shape or outside [0, 1]")
+        err = float(np.max(np.abs(got - want)))
+        emit(phase="serve_vs_cpu", model=model, rows=n, dtype=dtype, max_abs_err=err,
+             atol=atol, rtol=rtol, mean_score=float(got.mean()),
+             saturated=int(np.sum((got == 0) | (got == 1))))
+        np.testing.assert_allclose(got, want, rtol=rtol, atol=atol)
+    lat = times_in_turns([lambda: pred(requests[1000])], host_ms, runs=20)[0]
+    emit(phase="predictor_latency", model=model, rows=1000, dtype=dtype,
+         requests=len(lat), median_ms=statistics.median(lat),
+         p90_ms=float(np.percentile(lat, 90)), card=card)
+
+
+def train_and_serve_zoo(workdir: str, card: str) -> None:
+    """Slice 4's path for each model: the CLI, then serving its model_dir on
+    the card against the CPU. No hand-written kernel is on these paths, so
+    each run's kernel launches must be 0."""
+    data = make_synthetic_dataset(WECHAT_SCHEMA, num_rows=max(ZOO_REQUEST_ROWS), seed=SEED + 3)
+    requests = {n: {k: v[:n] for k, v in data.items() if k != "labels"}
+                for n in ZOO_REQUEST_ROWS}
+    for model in ZOO_MODELS:
+        model_dir, history, launches = run_cli(model, ZOO_ROWS, 1, workdir, card)
+        check(not any(launches.values()), f"{model} launched a kernel of another path: {launches}")
+        auc = history[-1]["eval_auc"]
+        if model in ZOO_AUC_BAR:
+            check(auc > 0.6, f"{model} eval AUC {auc} is not above 0.6")
+        cfg = default_config(model)
+        bf16 = model in ("bst", "autoint")
+        serve_against_cpu(model, cfg, model_dir, requests, BF16_PROB_ATOL if bf16 else 1e-5,
+                          0.0 if bf16 else 1e-5, card)
+        if model == "bst":
+            serve_against_cpu(model, cfg.replace(**F32_TRANSFORMER), model_dir, requests,
+                              1e-5, 1e-5, card)
+
+
 # -- phase 5 ------------------------------------------------------------------
 
 
@@ -651,17 +724,16 @@ def time_kernels(gen: torch.Generator, card: str, mma_sync_tflops: float):
     return timings
 
 
-def profile_xdeepfm_step(card: str) -> None:
-    """Where the time of an xDeepFM train step goes (B = 1024, full width):
-    untraced step time by host clock over synchronised steps, then one
-    trace of the same steps."""
-    trainer = Trainer(WECHAT_SCHEMA, default_config("xdeepfm"), TrainConfig(log_every=0))
+def profile_train_step(model: str, card: str, steps: int = 10) -> None:
+    """Where the time of a train step goes (B = 1024, full width, the
+    model's defaults): untraced step time by host clock over synchronised
+    steps, then one trace of the same steps."""
+    trainer = Trainer(WECHAT_SCHEMA, default_config(model), TrainConfig(log_every=0))
     state = trainer.init_state()
     data = make_synthetic_dataset(WECHAT_SCHEMA, num_rows=1024, seed=SEED + 2)
     data["_valid"] = np.ones(1024, np.float32)
     batch = trainer.to_device(data)
     meters = trainer.meters_init()
-    steps = 10
 
     def run():
         for _ in range(steps):
@@ -671,7 +743,7 @@ def profile_xdeepfm_step(card: str) -> None:
     run()  # warm-up
     step_ms = statistics.median(host_ms(run) for _ in range(5)) / steps
     events, device_total_us, host_top = profile_device(run)
-    emit(phase="profile_train_xdeepfm", batch=1024, steps=steps, step_ms=step_ms,
+    emit(phase=f"profile_train_{model}", batch=1024, steps=steps, step_ms=step_ms,
          examples_per_s=1024 / step_ms * 1e3, device_us_per_step=device_total_us / steps,
          device_busy_share=device_total_us / 1e3 / (step_ms * steps),
          device_launches_per_step=sum(e.count for e in events) / steps,
@@ -706,11 +778,14 @@ def main() -> int:
         xdeepfm_dir, cin_launches = train_xdeepfm(workdir, card)
         din_launches = train_din(workdir, card)
         serve_xdeepfm(xdeepfm_dir)
+        train_and_serve_zoo(workdir, card)
     serve_din(gen, card)
 
     # 5. times on the card
     timings = time_kernels(gen, card, mma_sync_ceiling(card))
-    profile_xdeepfm_step(card)
+    profile_train_step("xdeepfm", card)
+    profile_train_step("bst", card)
+    profile_train_step("dien", card, steps=3)
 
     rows = []
     for name, timed, source, replaces, launches, err in (

@@ -1,6 +1,6 @@
 """Single config-driven training CLI (port of ``rank_tpu/cli.py``).
 
-    python -m rank_tpu_torch.cli --model=xdeepfm --synthetic=200000 --num_epochs=2
+    python -m rank_tpu_torch.cli --model=dcn --synthetic=100000 --num_epochs=2
 
 The parser is the JAX CLI's, flag for flag and default for default, plus
 ``--device`` (default ``cuda``; ``--device=cpu`` runs the plain versions of
@@ -14,7 +14,7 @@ ignored: ``--train_data``/``--eval_data`` (parquet or npz; A12),
 ``--synthetic_calibrated`` (A12), ``--init_from_reference`` (A11),
 ``--table_parallelism`` > 1, an ``--embedding_mode`` other than ``gspmd``
 and ``--staged_shuffle=local`` (A13), ``--profile_dir`` and
-``--matmul_precision`` (A14). Models not ported yet raise too.
+``--matmul_precision`` (A14). The multi-task models (esmm, mmoe, ple) raise too.
 """
 
 from __future__ import annotations
@@ -39,7 +39,9 @@ def _str2bool(v: str) -> bool:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="CTR rank-model zoo on PyTorch/CUDA")
     p.add_argument("--model", type=str, required=True,
-                   help="one of the zoo models, e.g. xdeepfm, din")
+                   help="a single-task zoo model: afm, autoint, bst, dcn, deepcrossing, "
+                   "deepfm, dien, din, ffm, fibinet, flen, fwfm, pnn, widedeep, xdeepfm "
+                   "(esmm, mmoe and ple are not ported yet)")
     # data
     p.add_argument("--train_data", type=str, default=None)
     p.add_argument("--eval_data", type=str, default=None)

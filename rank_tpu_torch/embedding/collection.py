@@ -9,15 +9,17 @@ One ``nn.Embedding`` per owned table, driven by the FeatureSchema:
     and ``manual_tag_seq``).
 
 Tables are registered as ``table_<name>``, the flax module names, so the
-weight carry-over in ``interop.py`` maps keys mechanically. Only the plain
-gather (the JAX package's ``'gspmd'`` mode) is ported; the explicit
-table-sharded schedules (``'psum'`` / ``'alltoall'``) wait for the
-multi-device slice.
+weight carry-over in ``interop.py`` maps keys mechanically. ``features``
+names the features a model looks up; only their tables are made, as flax
+creates only the tables a model calls (DCN's collection has no
+``table_feedid``). Only the plain gather (the JAX package's ``'gspmd'``
+mode) is ported; the explicit table-sharded schedules (``'psum'`` /
+``'alltoall'``) wait for the multi-device slice.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -58,6 +60,7 @@ class EmbeddingCollection(nn.Module):
         init_name: str = "normal",
         mode: str = "gspmd",
         generator: Optional[torch.Generator] = None,
+        features: Optional[Sequence[str]] = None,
     ):
         super().__init__()
         if mode != "gspmd":
@@ -66,15 +69,18 @@ class EmbeddingCollection(nn.Module):
                 "(the plain gather) is"
             )
         init = INITIALIZERS[init_name]
-        for name, (vocab, dim) in table_specs(schema).items():
-            weight = init(torch.empty(vocab, dim), generator)
-            self.add_module(
-                f"table_{name}", nn.Embedding.from_pretrained(weight, freeze=False)
-            )
         self._owners = {
             f.name: f.shares_table_with or f.name
             for f in list(schema.categorical) + list(schema.sequence)
         }
+        wanted = None if features is None else {self._owners[f] for f in features}
+        for name, (vocab, dim) in table_specs(schema).items():
+            if wanted is not None and name not in wanted:
+                continue
+            weight = init(torch.empty(vocab, dim), generator)
+            self.add_module(
+                f"table_{name}", nn.Embedding.from_pretrained(weight, freeze=False)
+            )
 
     def lookup(self, name: str, ids: torch.Tensor) -> torch.Tensor:
         """ids (B,) or (B, T) -> embeddings (B, D) / (B, T, D)."""

@@ -11,14 +11,20 @@ The port registers its submodules under the flax module names (``tables``,
 leaf changes with the module's type:
 
   * ``nn.Linear``: ``weight`` <- ``kernel`` transposed from (in, out) to
-    (out, in); ``bias`` <- ``bias``;
+    (out, in); ``bias`` <- ``bias``. A bias-free layer (flax's
+    ``use_bias=False``: FiBiNet's ``senet``, AutoInt's ``w_res``) has
+    ``weight`` only, and flax ``kernel`` only;
   * ``nn.Embedding``: ``weight`` <- ``embedding``, rows 1:1;
   * BatchNorm: ``weight``/``bias`` <- ``scale``/``bias`` in ``params``;
     ``running_mean``/``running_var`` <- ``mean``/``var`` in
     ``batch_stats``; ``num_batches_tracked`` has no flax counterpart and
     is set to 0 (Dice's BatchNorm has no affine parameters);
-  * any other parameter (DINAttention's ``w1..b3``, Dice's ``alpha``)
-    <- the flax param of the same name, in the same (in, out) layout.
+  * ``nn.LayerNorm`` (the BST block's ``norm1``/``norm2``): ``weight`` <-
+    ``scale``, ``bias`` <- ``bias``;
+  * any other parameter (DINAttention's ``w1..b3``, Dice's ``alpha``, the
+    cross weights, the GRU kernels, AutoInt's ``DenseGeneral`` ``kernel``
+    in flax's (D_in, heads, att_dim) layout) <- the flax param of the same
+    name, in the same layout.
 
 Every key must match: a missing flax entry, a wrong shape or a flax entry
 left over raises.
@@ -50,6 +56,8 @@ def _flax_source(module: nn.Module, scope: Path, leaf: str) -> Optional[Tuple[Pa
         return ("params", *scope, {"weight": "kernel", "bias": "bias"}[leaf]), leaf == "weight"
     if isinstance(module, nn.Embedding):
         return ("params", *scope, "embedding"), False
+    if isinstance(module, nn.LayerNorm):
+        return ("params", *scope, {"weight": "scale", "bias": "bias"}[leaf]), False
     if isinstance(module, nn.modules.batchnorm._BatchNorm):
         if leaf == "num_batches_tracked":
             return None

@@ -3,7 +3,9 @@
 
 ``ModelConfig`` is the JAX package's, field for field and default for
 default, so one config names the same model on both sides. Fields of
-models not ported yet are carried and ignored.
+models not ported yet are carried and ignored; so are ``attn_impl`` (three
+TPU formulations of one function, which the port computes once) and
+``gru_unroll`` (a ``lax.scan`` unroll factor).
 """
 
 from __future__ import annotations
@@ -127,10 +129,16 @@ class RankModel(nn.Module):
         self.schema = schema
         self.cfg = cfg
 
-    def embedding_collection(self, generator: Optional[torch.Generator]) -> EmbeddingCollection:
+    def embedding_collection(
+        self,
+        generator: Optional[torch.Generator],
+        features: Optional[Sequence[str]] = None,
+    ) -> EmbeddingCollection:
+        """The collection, named ``tables`` by the caller; ``features`` are
+        the ones the model looks up (every table when None)."""
         return EmbeddingCollection(
             self.schema, self.cfg.embedding_init, mode=self.cfg.embedding_mode,
-            generator=generator,
+            generator=generator, features=features,
         )
 
     def dense_input(self, batch: Batch) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """Model registry (port of ``rank_tpu/models/registry.py``).
 
 ``DEFAULT_CONFIGS`` is the JAX package's, whole: each reference model's
-best-AUC hyperparameters (BASELINE.md). ``MODEL_CLASSES`` holds the models
-ported so far; asking for another one of the zoo raises.
+best-AUC hyperparameters (BASELINE.md). ``MODEL_CLASSES`` holds the 15
+single-task models; asking for a multi-task one (esmm, mmoe, ple) raises
+``NotImplementedError`` until the multi-task slice.
 """
 
 from __future__ import annotations
@@ -13,12 +14,26 @@ import torch
 
 from ..features import FeatureSchema
 from .base import ModelConfig, RankModel
-from .cross_family import XDeepFM
-from .sequence import DIN
+from .cross_family import DCN, AutoInt, DeepCrossing, FiBiNet, XDeepFM
+from .fm_family import AFM, FFM, FLEN, PNN, DeepFM, FwFM, WideDeep
+from .sequence import BST, DIEN, DIN
 
 MODEL_CLASSES: Dict[str, Type[RankModel]] = {
-    "din": DIN,
+    "ffm": FFM,
+    "deepcrossing": DeepCrossing,
+    "pnn": PNN,
+    "widedeep": WideDeep,
+    "deepfm": DeepFM,
+    "dcn": DCN,
+    "afm": AFM,
     "xdeepfm": XDeepFM,
+    "fwfm": FwFM,
+    "din": DIN,
+    "dien": DIEN,
+    "fibinet": FiBiNet,
+    "autoint": AutoInt,
+    "flen": FLEN,
+    "bst": BST,
 }
 
 MULTI_TASK_MODELS = {"esmm", "mmoe", "ple"}

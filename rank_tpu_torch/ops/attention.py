@@ -1,10 +1,16 @@
-"""Target attention over behaviour sequences, DIN form (port of
-``rank_tpu/ops/attention.py``).
+"""Target attention over behaviour sequences, DIN and DIEN forms, and the
+softmaxes the zoo shares (port of ``rank_tpu/ops/attention.py``).
 
-DIN's local-activation unit: cross features [q, k, q-k, q*k] ->
-MLP(4d->64->32->1) scores; mask by sequence length; either the scaled
-masked softmax (``use_softmax``) or the raw masked scores; weighted-sum
-pool over keys. Zero-length sequences give an all-zero pooled vector.
+  * DIN's local-activation unit: cross features [q, k, q-k, q*k] ->
+    MLP(4d->64->32->1) scores; mask by sequence length; either the scaled
+    masked softmax (``use_softmax``) or the raw masked scores; weighted-sum
+    pool over keys. Zero-length sequences give an all-zero pooled vector.
+  * DIEN's bilinear attention: score_t = h_t . (W e_target), masked
+    softmax; a zero-length row gets all-zero weights.
+  * ``masked_softmax_lowp`` / ``softmax_lowp``: the low-precision storage
+    contract of the BST block and the AutoInt layer. Tensors of the
+    scores' shape stay in the scores' dtype (bf16); the exp argument and
+    the normalising sum run in f32.
 """
 
 from __future__ import annotations
@@ -14,7 +20,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from .mlp import init_dense_
+from .mlp import init_dense_, xavier_normal_
 
 MASK_NEG = -(2.0**32) + 1.0  # reference padding value, din.py:74
 
@@ -33,6 +39,27 @@ def masked_softmax(scores: torch.Tensor, mask: torch.Tensor, dim: int = -1) -> t
     e = torch.exp(masked - m) * mask.to(scores.dtype)
     denom = torch.sum(e, dim=dim, keepdim=True)
     return e / torch.clamp_min(denom, 1e-12)
+
+
+def masked_softmax_lowp(scores: torch.Tensor, mask: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """``masked_softmax`` with storage in the scores' dtype: the exp argument
+    and the normalising sum in f32, everything of the scores' shape in
+    their dtype. bf16 has f32's exponent range, so the MASK_NEG sentinel and
+    the max subtraction are safe."""
+    masked = torch.where(mask, scores, MASK_NEG)
+    m = torch.amax(masked, dim=dim, keepdim=True)
+    e = (torch.exp((masked - m).float()) * mask.float()).to(scores.dtype)
+    denom = torch.sum(e.float(), dim=dim, keepdim=True)
+    return e * torch.reciprocal(torch.clamp_min(denom, 1e-12)).to(scores.dtype)
+
+
+def softmax_lowp(scores: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """The unmasked ``masked_softmax_lowp``, under the same contract (the
+    AutoInt layer's)."""
+    m = torch.amax(scores, dim=dim, keepdim=True)
+    e = torch.exp((scores - m).float()).to(scores.dtype)
+    denom = torch.sum(e.float(), dim=dim, keepdim=True)
+    return e * torch.reciprocal(torch.clamp_min(denom, 1e-12)).to(scores.dtype)
 
 
 class DINAttention(nn.Module):
@@ -89,3 +116,22 @@ class DINAttention(nn.Module):
         }[self.backend]
         params = (self.w1, self.b1, self.w2, self.b2, self.w3, self.b3)
         return fn(query, keys, lengths, params, self.use_softmax)
+
+
+class BilinearAttention(nn.Module):
+    """DIEN's paper-form attention weights, score_t = h_t . (W e_target);
+    ``w`` is (Dq, Dk) under flax's truncated xavier_normal."""
+
+    def __init__(self, query_dim: int, key_dim: int, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.w = nn.Parameter(xavier_normal_(torch.empty(query_dim, key_dim), generator))
+
+    def forward(
+        self,
+        query: torch.Tensor,    # (B, Dq)
+        keys: torch.Tensor,     # (B, T, Dk)
+        lengths: torch.Tensor,  # (B,)
+    ) -> torch.Tensor:
+        """(B, T) attention weights."""
+        scores = torch.einsum("btd,bd->bt", keys, query @ self.w)
+        return masked_softmax(scores, length_mask(lengths, keys.shape[1]))

@@ -24,24 +24,13 @@ recomputes through the plain version.
 
 from __future__ import annotations
 
-import math
 from typing import Optional, Sequence
 
 import torch
 from torch import nn
 
 from .kernels import cin as kernels
-
-
-def xavier_uniform_(w: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
-    """flax's ``xavier_uniform`` on an (O, H, F) weight: fans counted along
-    axes -2 and -1 with the leading axis as the receptive field, so
-    fan_in = H*O and fan_out = F*O (torch's ``xavier_uniform_`` counts
-    axes 1 and 0 and would give another bound)."""
-    o, h, f = w.shape
-    bound = math.sqrt(6.0 / (h * o + f * o))
-    with torch.no_grad():
-        return w.uniform_(-bound, bound, generator=generator)
+from .mlp import xavier_uniform_  # flax's fans: fan_in = H*O, fan_out = F*O on (O, H, F)
 
 
 class CIN(nn.Module):

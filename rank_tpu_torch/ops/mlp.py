@@ -6,9 +6,13 @@
   * ``act_bn``: Linear -> activation -> BN -> Dropout (DIN)
 
 Layers are registered under the flax module names (``Dense_i``,
-``BatchNorm_i``, ``Dice_i``, ``PReLU_i``) so ``interop.py`` maps the JAX
-package's variables mechanically. BatchNorm (``activations.BatchNorm``)
-uses eps 1e-5 and flax's decay 0.99, and trains as flax's does.
+``BatchNorm_i``, ``Dice_i``, ``PReLU_i``; ``final_logit``'s output layer is
+``Dense_{len(hidden_units)}``) so ``interop.py`` maps the JAX package's
+variables mechanically. BatchNorm (``activations.BatchNorm``) uses eps 1e-5
+and flax's decay 0.99, and trains as flax's does.
+
+The initialisers of flax's ``nn.initializers`` that the zoo's raw
+parameters use live here too, with flax's fan rule.
 """
 
 from __future__ import annotations
@@ -22,13 +26,13 @@ from torch import nn
 from .activations import BatchNorm, Dice, PReLU, batch_norm_last, leaky_relu
 
 # standard deviation of a unit normal truncated to [-2, 2]; flax's
-# lecun_normal divides by it so the truncated draw keeps variance 1/fan_in
+# truncated-normal initialisers divide by it so the draw keeps its variance
 _TRUNC_STD = 0.87962566103423978
 
 
 def init_dense_(
     kernel: torch.Tensor,
-    bias: torch.Tensor,
+    bias: Optional[torch.Tensor],
     fan_in: int,
     dense_init: str,
     generator: Optional[torch.Generator],
@@ -44,13 +48,51 @@ def init_dense_(
         if dense_init == "torch":
             bound = float(fan_in) ** -0.5
             nn.init.uniform_(kernel, -bound, bound, generator=generator)
-            nn.init.uniform_(bias, -bound, bound, generator=generator)
+            if bias is not None:
+                nn.init.uniform_(bias, -bound, bound, generator=generator)
         elif dense_init == "lecun":
-            std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
-            nn.init.trunc_normal_(kernel, 0.0, std, -2 * std, 2 * std, generator=generator)
-            bias.zero_()
+            lecun_normal_(kernel, fan_in, generator)
+            if bias is not None:
+                bias.zero_()
         else:
             raise ValueError(f"unknown dense_init {dense_init!r}")
+
+
+def flax_fans(shape: Sequence[int]) -> Tuple[int, int]:
+    """(fan_in, fan_out) as flax's ``variance_scaling`` counts them: the
+    last two axes are in and out, every leading axis is receptive field.
+    torch's ``nn.init`` counts axes 1 and 0 instead, which gives other
+    bounds for the zoo's 3-D weights (CIN's (O, H, F), the bilinear
+    (P, D, D), the outer product's (K, D, D))."""
+    receptive = math.prod(shape[:-2])
+    return shape[-2] * receptive, shape[-1] * receptive
+
+
+def xavier_uniform_(w: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax's ``xavier_uniform``: U(+-sqrt(6 / (fan_in + fan_out)))."""
+    fan_in, fan_out = flax_fans(w.shape)
+    bound = math.sqrt(6.0 / (fan_in + fan_out))
+    with torch.no_grad():
+        return w.uniform_(-bound, bound, generator=generator)
+
+
+def truncated_normal_(w: torch.Tensor, variance: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax's ``truncated_normal`` variance scaling: a normal cut at two
+    standard deviations and rescaled so the draw keeps ``variance``."""
+    std = math.sqrt(variance) / _TRUNC_STD
+    with torch.no_grad():
+        return nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
+
+
+def xavier_normal_(w: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax's ``xavier_normal`` (truncated): variance 2 / (fan_in + fan_out)."""
+    fan_in, fan_out = flax_fans(w.shape)
+    return truncated_normal_(w, 2.0 / (fan_in + fan_out), generator)
+
+
+def lecun_normal_(w: torch.Tensor, fan_in: int, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax's ``lecun_normal`` (truncated): variance 1 / fan_in."""
+    return truncated_normal_(w, 1.0 / fan_in, generator)
 
 
 def dense_layer(
@@ -58,12 +100,21 @@ def dense_layer(
     features: int,
     dense_init: str = "lecun",
     generator: Optional[torch.Generator] = None,
+    bias: bool = True,
 ) -> nn.Linear:
     """``nn.Linear`` initialised as the JAX package's ``nn.Dense`` under
-    ``dense_init``, drawing only from ``generator``."""
-    layer = nn.Linear(fan_in, features, device="meta").to_empty(device="cpu")
+    ``dense_init``, drawing only from ``generator``; ``bias=False`` is
+    flax's ``use_bias=False``."""
+    layer = nn.Linear(fan_in, features, bias=bias, device="meta").to_empty(device="cpu")
     init_dense_(layer.weight, layer.bias, fan_in, dense_init, generator)
     return layer
+
+
+def linear_in(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """``layer`` applied in ``x``'s dtype: flax's ``nn.Dense(dtype=...)``,
+    which keeps f32 parameters and casts them at the call."""
+    bias = None if layer.bias is None else layer.bias.to(x.dtype)
+    return torch.nn.functional.linear(x, layer.weight.to(x.dtype), bias)
 
 
 ACTIVATIONS = ("relu", "dice", "prelu", "leakyrelu")
@@ -80,6 +131,7 @@ class MLPTower(nn.Module):
         order: str = "bn_act",
         dense_init: str = "lecun",
         generator: Optional[torch.Generator] = None,
+        final_logit: bool = False,
     ):
         super().__init__()
         if activation not in ACTIVATIONS:
@@ -111,6 +163,11 @@ class MLPTower(nn.Module):
                 self.add_module(f"Dropout_{i}", drop)
             self._layers.append((dense, act, norm, drop))
             width_in = width
+        # final_logit: a Dense(1) output layer, as the JAX tower appends it
+        self._final = f"Dense_{len(hidden_units)}" if final_logit else None
+        if final_logit:
+            self.add_module(self._final, dense_layer(width_in, 1, dense_init, generator))
+            width_in = 1
         self.out_features = width_in
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -126,4 +183,4 @@ class MLPTower(nn.Module):
                     x = batch_norm_last(norm, x)
             if drop is not None:
                 x = drop(x)
-        return x
+        return x if self._final is None else getattr(self, self._final)(x)

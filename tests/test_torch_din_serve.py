@@ -193,13 +193,13 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 
 def test_unported_model_and_model_dir_raise(tmp_path):
-    """An unported model raises; ``model_dir`` serves the saved best model
-    (it raised before the checkpoint port) and a directory without one
-    raises."""
+    """An unported model (multi-task) raises; ``model_dir`` serves the saved
+    best model (it raised before the checkpoint port) and a directory
+    without one raises."""
     from rank_tpu_torch.train import CheckpointManager
 
     with pytest.raises(NotImplementedError, match="not ported"):
-        build_model(tiny_schema(), default_config("dcn"), device="cpu")
+        build_model(tiny_schema(), default_config("mmoe"), device="cpu")
     schema, cfg = tiny_schema(), default_config("din", hidden_units=(8,))
     model = build_model(schema, cfg, device="cpu", generator=torch.Generator().manual_seed(3))
     CheckpointManager(str(tmp_path / "ckpt")).save_best({"model": model})
@@ -231,7 +231,11 @@ def test_port_imports_nothing_of_jax():
     code = (
         "import sys; before = set(sys.modules); "
         "import rank_tpu_torch, rank_tpu_torch.interop, rank_tpu_torch.ops.kernels.din_attention, "
-        "rank_tpu_torch.cli, rank_tpu_torch.train.loop, rank_tpu_torch.ops.kernels.cin; "
+        "rank_tpu_torch.cli, rank_tpu_torch.train.loop, rank_tpu_torch.ops.kernels.cin, "
+        "rank_tpu_torch.ops.cross, rank_tpu_torch.ops.fm, rank_tpu_torch.ops.product, "
+        "rank_tpu_torch.ops.senet, rank_tpu_torch.ops.autoint, rank_tpu_torch.ops.transformer, "
+        "rank_tpu_torch.ops.rnn, rank_tpu_torch.models.fm_family, "
+        "rank_tpu_torch.models.cross_family, rank_tpu_torch.models.sequence; "
         "new = {m.split('.')[0] for m in set(sys.modules) - before}; "
         "assert not new & {'jax', 'flax', 'rank_tpu'}, new"
     )

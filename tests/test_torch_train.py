@@ -199,27 +199,34 @@ def _variables(state):
     return {"params": state["params"], **state["extra"]}
 
 
-@pytest.mark.parametrize("name", ["xdeepfm", "din"])
-def test_train_step_parity(name):
+def bn_fed_bias_noise(tower: str, layers: int, lr: float, steps: int = 3) -> dict:
+    """The 3-step atol of the Dense biases that feed a BatchNorm in
+    ``tower`` (bn_act order), and of those BatchNorms' running means: see
+    ``check_train_step_parity``."""
+    noise = {f"{tower}.Dense_{i}.bias": steps * lr for i in range(layers)}
+    noise.update({f"{tower}.BatchNorm_{i}.running_mean": steps * lr * 0.01
+                  for i in range(layers)})
+    return noise
+
+
+def check_train_step_parity(name: str, overrides: dict, noise: dict, lr: float = 0.005):
     """One JAX trainer and one port trainer from the same weights (the JAX
     init, carried over) and the same three batches. Step 1: loss and every
     gradient. After 3 Adam steps: every parameter and BatchNorm running
     statistic.
 
-    Hazard: a Dense bias that feeds a BatchNorm (xDeepFM's tower, bn_act
-    order) has a gradient that is zero up to rounding, and Adam turns that
-    noise into steps of +-lr, whose signs differ between the frameworks. So
-    those biases are compared at atol = steps * lr, and the running means of
-    the BatchNorms they feed, which take (1 - decay) of each batch mean, at
-    atol = steps * lr * (1 - decay). DIN's attention bias ``b3`` shifts every
-    valid score alike, which the softmax cancels: its gradient is rounding
-    noise too, and it is compared at atol = steps * lr."""
+    Hazard: a Dense bias that feeds a BatchNorm (a bn_act tower) has a
+    gradient that is zero up to rounding, and Adam turns that noise into
+    steps of +-lr, whose signs differ between the frameworks. So those
+    biases are compared at atol = steps * lr, and the running means of the
+    BatchNorms they feed, which take (1 - decay) of each batch mean, at
+    atol = steps * lr * (1 - decay) (``bn_fed_bias_noise``). ``noise`` maps
+    each such key to its atol."""
     schema, jax_schema = tiny_schema(), jax_tiny_schema()
     data = make_synthetic_dataset(schema, num_rows=3 * PARITY_BS, seed=11)
     batches = list(ArrayLoader(data, PARITY_BS))
-    lr = 0.005
 
-    jtrainer = JaxTrainer(jax_schema, jax_default_config(name, **PARITY_OVERRIDES[name]),
+    jtrainer = JaxTrainer(jax_schema, jax_default_config(name, **overrides),
                           JaxTrainConfig(batch_size=PARITY_BS, learning_rate=lr, log_every=0))
     jstate = jtrainer.init_state(batches[0])
     variables0 = _variables(jstate)
@@ -233,7 +240,7 @@ def test_train_step_parity(name):
     for b in jbatches:
         jstate, jmeters = step(jstate, jmeters, b)
 
-    trainer = Trainer(schema, default_config(name, **PARITY_OVERRIDES[name]),
+    trainer = Trainer(schema, default_config(name, **overrides),
                       TrainConfig(batch_size=PARITY_BS, learning_rate=lr, log_every=0),
                       device="cpu")
     state = trainer.init_state()
@@ -243,8 +250,7 @@ def test_train_step_parity(name):
     trainer.train_step(state, meters, trainer.to_device(batches[0]))
 
     np.testing.assert_allclose(float(meters["loss"]), float(jloss), **TOL)
-    want_grads = state_dict_from_flax(
-        model, {"params": jgrads, "batch_stats": variables0["batch_stats"]})
+    want_grads = state_dict_from_flax(model, {**variables0, "params": jgrads})
     params = dict(model.named_parameters())
     assert len(params) > 10
     for key, p in params.items():
@@ -257,12 +263,7 @@ def test_train_step_parity(name):
     np.testing.assert_allclose(float(meters["loss"]), float(jmeters["loss"]), **TOL)
     want = state_dict_from_flax(model, _variables(jstate))
     got = model.state_dict()
-    if name == "xdeepfm":
-        noise = {f"dnn.Dense_{i}.bias": 3 * lr for i in range(2)}
-        noise.update({f"dnn.BatchNorm_{i}.running_mean": 3 * lr * 0.01 for i in range(2)})
-    else:
-        noise = {"attention.b3": 3 * lr}
-    assert set(noise) <= set(got) and any("running_var" in k for k in got)
+    assert set(noise) <= set(got)
     for key, value in got.items():
         if key.endswith("num_batches_tracked"):
             assert int(value) == 3
@@ -270,6 +271,19 @@ def test_train_step_parity(name):
         tol = dict(rtol=0, atol=noise[key]) if key in noise else TOL
         np.testing.assert_allclose(value.numpy(), want[key].numpy(), **tol,
                                    err_msg=f"{key} after 3 steps")
+    return got
+
+
+@pytest.mark.parametrize("name", ["xdeepfm", "din"])
+def test_train_step_parity(name):
+    """``check_train_step_parity`` for xdeepfm and din at dropout 0.
+    xDeepFM's tower is bn_act. DIN's attention bias ``b3`` shifts every
+    valid score alike, which the softmax cancels: its gradient is rounding
+    noise too, and it is compared at atol = steps * lr."""
+    lr = 0.005
+    noise = bn_fed_bias_noise("dnn", 2, lr) if name == "xdeepfm" else {"attention.b3": 3 * lr}
+    got = check_train_step_parity(name, PARITY_OVERRIDES[name], noise, lr)
+    assert any("running_var" in k for k in got)
 
 
 # -- the CLI on the CPU ---------------------------------------------------------
@@ -323,7 +337,7 @@ def test_cli_error_paths(tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--model=dcn"],
+    ["--model=mmoe"],
     ["--model=din", "--synthetic=0", "--train_data=a.parquet", "--eval_data=b.parquet",
      "--vocabulary_dir=v"],
     ["--model=din", "--synthetic_calibrated=0.1"],
