@@ -54,6 +54,14 @@ Phases; any failure raises and the script exits non-zero:
         AutoInt at their bf16 defaults to the probability bar of
         ``tests/test_torch_zoo_forward.py`` (0.05), and BST once more at
         f32, to 1e-5; and its latency at 1000 rows;
+     e. the multi-task models (slice 5), which run no hand-written kernel:
+        mmoe, ple and esmm through ``cli.main`` at ``default_config``
+        (``--synthetic=100000 --num_epochs=1``), and mmoe again under
+        ``--task_weighting`` uncertainty, gradnorm and pcgrad (3 tasks).
+        Each run's loss must be finite and every task AUC above 0.6; under
+        gradnorm the saved GradNorm weights must sum to T and have moved
+        from 1. Each ``model_dir`` is served like the zoo's, every head
+        on the card against the CPU at f32 to 1e-5;
   5. times on the card: each kernel, its plain version (no yardstick of
      speed: it repeats the kernel's arithmetic in unfused torch ops), the
      one PyTorch call that computes the same function where there is one
@@ -63,9 +71,9 @@ Phases; any failure raises and the script exits non-zero:
      rate measured first by ``csrc/mma_ceiling.cu``), by CUDA events with
      a cold L2, at B in {256, 1024, 8192} (B2: both layers); Predictor
      latency per request size by host clock, kernel and plain in turns;
-     and profiler traces of xDeepFM, BST and DIEN train steps (B = 1024):
-     step time, the top device operations, launches a step and the
-     device-busy share.
+     and profiler traces of xDeepFM, BST, DIEN, MMOE and MMOE under PCGrad
+     train steps (B = 1024): step time, the top device operations,
+     launches a step and the device-busy share.
 
 Then it prints one line ``{"kernels": [...]}``, the card's line and, last,
 ``{"ok": true, "device": {...}}``.
@@ -110,6 +118,10 @@ ZOO_MODELS = ("afm", "autoint", "bst", "dcn", "deepcrossing", "deepfm", "dien", 
               "fibinet", "flen", "fwfm", "pnn", "widedeep")
 ZOO_AUC_BAR = ("afm", "autoint", "bst", "dcn", "deepcrossing", "dien", "fibinet", "flen")
 ZOO_ROWS = 100_000
+# slice 5: the multi-task models, and mmoe under each gradient weighting;
+# the JAX package's synthetic record gives 0.78-0.87 for every task AUC
+MULTITASK_RUNS = (("mmoe", "sum"), ("ple", "sum"), ("esmm", "sum"), ("mmoe", "uncertainty"),
+                  ("mmoe", "gradnorm"), ("mmoe", "pcgrad"))
 ZOO_REQUEST_ROWS = (1, 1000, 5000)
 # card against CPU at the bf16 defaults of BST and AutoInt: the probability
 # bar of tests/test_torch_zoo_forward.py (BF16_BAR)
@@ -486,15 +498,18 @@ def read_history(output_dir: str):
         return [json.loads(line) for line in f]
 
 
-def run_cli(model: str, rows: int, epochs: int, workdir: str, card: str):
-    """One CLI run at the defaults; returns (model_dir, history, launches of
-    each kernel in the run, wall seconds)."""
-    model_dir, output_dir = (os.path.join(workdir, model, d) for d in ("model_dir", "output_dir"))
+def run_cli(model: str, rows: int, epochs: int, workdir: str, card: str, extra=(),
+            run: str = ""):
+    """One CLI run at the defaults plus ``extra`` flags, in ``workdir``'s
+    directory ``run`` (the model's name by default); returns (model_dir,
+    history, launches of each kernel in the run)."""
+    run = run or model
+    model_dir, output_dir = (os.path.join(workdir, run, d) for d in ("model_dir", "output_dir"))
     din_kernels.din_attention_cuda.launches = 0
     cin_kernels.cin_layer_cuda_t.launches = 0
     t0 = time.perf_counter()
     rc = cli.main([f"--model={model}", f"--synthetic={rows}", f"--num_epochs={epochs}",
-                   f"--model_dir={model_dir}", f"--output_dir={output_dir}"])
+                   f"--model_dir={model_dir}", f"--output_dir={output_dir}", *extra])
     seconds = time.perf_counter() - t0
     launches = {"din_attention_fwd": din_kernels.din_attention_cuda.launches,
                 "cin_layer_fwd": cin_kernels.cin_layer_cuda_t.launches}
@@ -506,10 +521,11 @@ def run_cli(model: str, rows: int, epochs: int, workdir: str, card: str):
     for h in history:
         check(all(math.isfinite(h[k]) for k in ("train_loss", "eval_loss", "eval_auc")),
               f"{model}: non-finite metrics {h}")
-        emit(phase="train_epoch", model=model, rows=rows, epoch=h["epoch"],
+        emit(phase="train_epoch", model=model, run=run, rows=rows, epoch=h["epoch"],
              train_loss=h["train_loss"], train_auc=h["train_auc"], eval_loss=h["eval_loss"],
-             eval_auc=h["eval_auc"], train_examples_per_s=h["train_examples_per_s"], card=card)
-    emit(phase="train_run", model=model, rows=rows, epochs=epochs, seconds=seconds,
+             eval_auc=h["eval_auc"], eval_task_aucs=h["eval_task_aucs"],
+             train_examples_per_s=h["train_examples_per_s"], card=card)
+    emit(phase="train_run", model=model, run=run, rows=rows, epochs=epochs, seconds=seconds,
          launches=launches)
     return model_dir, history, launches
 
@@ -644,26 +660,32 @@ def serve_din(gen: torch.Generator, card: str):
 
 
 def serve_against_cpu(model: str, cfg, model_dir: str, requests, atol: float, rtol: float,
-                      card: str) -> None:
-    """Serve ``model_dir``'s best model on the card and on the CPU; the
-    card's scores must match within the tolerance. A probability may
-    saturate to 0 or 1 in f32 (DCN's cross terms grow with the square of
-    the dense features), so the scores are held to [0, 1]."""
+                      card: str, run: str = "") -> None:
+    """Serve ``model_dir``'s best model on the card and on the CPU; every
+    head's scores on the card must match the CPU's within the tolerance
+    (single-task models have one head, ``score``; the multi-task ones one
+    a task, or ESMM's ``ctr`` and ``ctcvr``). A probability may saturate
+    to 0 or 1 in f32 (DCN's cross terms grow with the square of the dense
+    features), so the scores are held to [0, 1]."""
     pred = Predictor(WECHAT_SCHEMA, cfg, model_dir=model_dir)
     cpu = Predictor(WECHAT_SCHEMA, cfg, model_dir=model_dir, device="cpu")
     dtype = cfg.transformer_dtype if model in ("bst", "autoint") else "float32"
     for n, req in requests.items():
-        got, want = pred(req)["score"], cpu(req)["score"]
-        check(got.shape == (n,) and got.dtype == np.float32
-              and np.all(np.isfinite(got)) and np.all((got >= 0) & (got <= 1)),
-              f"{model}, {n} rows: scores not finite, of the wrong shape or outside [0, 1]")
-        err = float(np.max(np.abs(got - want)))
-        emit(phase="serve_vs_cpu", model=model, rows=n, dtype=dtype, max_abs_err=err,
-             atol=atol, rtol=rtol, mean_score=float(got.mean()),
-             saturated=int(np.sum((got == 0) | (got == 1))))
-        np.testing.assert_allclose(got, want, rtol=rtol, atol=atol)
+        got_heads, want_heads = pred(req), cpu(req)
+        check(sorted(got_heads) == sorted(want_heads), f"{model}: heads {sorted(got_heads)}")
+        for head, got in got_heads.items():
+            want = want_heads[head]
+            check(got.shape == (n,) and got.dtype == np.float32
+                  and np.all(np.isfinite(got)) and np.all((got >= 0) & (got <= 1)),
+                  f"{model} {head}, {n} rows: scores not finite, of the wrong shape or "
+                  "outside [0, 1]")
+            err = float(np.max(np.abs(got - want)))
+            emit(phase="serve_vs_cpu", model=model, run=run or model, head=head, rows=n,
+                 dtype=dtype, max_abs_err=err, atol=atol, rtol=rtol,
+                 mean_score=float(got.mean()), saturated=int(np.sum((got == 0) | (got == 1))))
+            np.testing.assert_allclose(got, want, rtol=rtol, atol=atol)
     lat = times_in_turns([lambda: pred(requests[1000])], host_ms, runs=20)[0]
-    emit(phase="predictor_latency", model=model, rows=1000, dtype=dtype,
+    emit(phase="predictor_latency", model=model, run=run or model, rows=1000, dtype=dtype,
          requests=len(lat), median_ms=statistics.median(lat),
          p90_ms=float(np.percentile(lat, 90)), card=card)
 
@@ -688,6 +710,36 @@ def train_and_serve_zoo(workdir: str, card: str) -> None:
         if model == "bst":
             serve_against_cpu(model, cfg.replace(**F32_TRANSFORMER), model_dir, requests,
                               1e-5, 1e-5, card)
+
+
+def train_and_serve_multitask(workdir: str, card: str) -> None:
+    """Slice 5's path for each run of ``MULTITASK_RUNS``: the CLI (no
+    hand-written kernel, so no launch), every task AUC above 0.6, GradNorm's
+    saved weights, then serving the model_dir, every head on the card
+    against the CPU."""
+    data = make_synthetic_dataset(WECHAT_SCHEMA, num_rows=max(ZOO_REQUEST_ROWS), seed=SEED + 4)
+    requests = {n: {k: v[:n] for k, v in data.items() if k != "labels"}
+                for n in ZOO_REQUEST_ROWS}
+    for model, weighting in MULTITASK_RUNS:
+        run = f"{model}-{weighting}"
+        extra = [f"--task_weighting={weighting}"]
+        if weighting == "gradnorm":  # a checkpoint, to read GradNorm's state
+            extra.append("--save_checkpoints_steps=1")
+        model_dir, history, launches = run_cli(model, ZOO_ROWS, 1, workdir, card, extra, run)
+        check(not any(launches.values()), f"{run} launched a kernel of another path: {launches}")
+        cfg = default_config(model, task_weighting=weighting)
+        aucs = history[-1]["eval_task_aucs"]
+        heads = ("ctr", "ctcvr") if model == "esmm" else cfg.tasks
+        check(sorted(aucs) == sorted(heads), f"{run}: task AUCs of {sorted(aucs)}")
+        check(all(auc > 0.6 for auc in aucs.values()), f"{run}: a task AUC not above 0.6: {aucs}")
+        if weighting == "gradnorm":
+            saved = torch.load(os.path.join(model_dir, "checkpoint_epoch_1"), map_location="cpu",
+                               weights_only=True)["mtl"]
+            w = saved["w"]
+            emit(phase="gradnorm_weights", run=run, w=w.tolist(), l0=saved["l0"].tolist())
+            check(abs(float(w.sum()) - len(cfg.tasks)) < 1e-4, f"{run}: weights {w} sum != T")
+            check(float((w - 1).abs().max()) > 1e-3, f"{run}: weights {w} did not move from 1")
+        serve_against_cpu(model, cfg, model_dir, requests, 1e-5, 1e-5, card, run)
 
 
 # -- phase 5 ------------------------------------------------------------------
@@ -724,11 +776,11 @@ def time_kernels(gen: torch.Generator, card: str, mma_sync_tflops: float):
     return timings
 
 
-def profile_train_step(model: str, card: str, steps: int = 10) -> None:
+def profile_train_step(model: str, card: str, steps: int = 10, **overrides) -> None:
     """Where the time of a train step goes (B = 1024, full width, the
-    model's defaults): untraced step time by host clock over synchronised
-    steps, then one trace of the same steps."""
-    trainer = Trainer(WECHAT_SCHEMA, default_config(model), TrainConfig(log_every=0))
+    model's defaults with ``overrides``): untraced step time by host clock
+    over synchronised steps, then one trace of the same steps."""
+    trainer = Trainer(WECHAT_SCHEMA, default_config(model, **overrides), TrainConfig(log_every=0))
     state = trainer.init_state()
     data = make_synthetic_dataset(WECHAT_SCHEMA, num_rows=1024, seed=SEED + 2)
     data["_valid"] = np.ones(1024, np.float32)
@@ -743,7 +795,8 @@ def profile_train_step(model: str, card: str, steps: int = 10) -> None:
     run()  # warm-up
     step_ms = statistics.median(host_ms(run) for _ in range(5)) / steps
     events, device_total_us, host_top = profile_device(run)
-    emit(phase=f"profile_train_{model}", batch=1024, steps=steps, step_ms=step_ms,
+    name = "_".join([model, *map(str, overrides.values())])
+    emit(phase=f"profile_train_{name}", batch=1024, steps=steps, step_ms=step_ms,
          examples_per_s=1024 / step_ms * 1e3, device_us_per_step=device_total_us / steps,
          device_busy_share=device_total_us / 1e3 / (step_ms * steps),
          device_launches_per_step=sum(e.count for e in events) / steps,
@@ -779,6 +832,7 @@ def main() -> int:
         din_launches = train_din(workdir, card)
         serve_xdeepfm(xdeepfm_dir)
         train_and_serve_zoo(workdir, card)
+        train_and_serve_multitask(workdir, card)
     serve_din(gen, card)
 
     # 5. times on the card
@@ -786,6 +840,8 @@ def main() -> int:
     profile_train_step("xdeepfm", card)
     profile_train_step("bst", card)
     profile_train_step("dien", card, steps=3)
+    profile_train_step("mmoe", card)
+    profile_train_step("mmoe", card, task_weighting="pcgrad")
 
     rows = []
     for name, timed, source, replaces, launches, err in (

@@ -14,7 +14,14 @@ ignored: ``--train_data``/``--eval_data`` (parquet or npz; A12),
 ``--synthetic_calibrated`` (A12), ``--init_from_reference`` (A11),
 ``--table_parallelism`` > 1, an ``--embedding_mode`` other than ``gspmd``
 and ``--staged_shuffle=local`` (A13), ``--profile_dir`` and
-``--matmul_precision`` (A14). The multi-task models (esmm, mmoe, ple) raise too.
+``--matmul_precision`` (A14).
+
+Every model of the JAX registry runs, the multi-task ESMM, MMOE and PLE
+with every ``--task_weighting`` (sum, uncertainty, gradnorm, pcgrad;
+the last two for mmoe and ple only). Their eval prints each head's AUC;
+``predictions.csv`` holds the primary head (the first task's, or ESMM's
+``ctr``) against the first task's label, under the name ``--label``, as
+the JAX CLI writes it.
 """
 
 from __future__ import annotations
@@ -27,7 +34,7 @@ import sys
 from .data.loader import ArrayLoader, num_rows, split_train_test
 from .data.synthetic import make_synthetic_dataset
 from .features import WECHAT_SCHEMA
-from .models import DEFAULT_CONFIGS, MODEL_CLASSES, default_config
+from .models import DEFAULT_CONFIGS, default_config
 from .train import CheckpointManager, TrainConfig, Trainer, export_predictions
 from .train.staged import StagedRunner
 
@@ -39,9 +46,8 @@ def _str2bool(v: str) -> bool:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="CTR rank-model zoo on PyTorch/CUDA")
     p.add_argument("--model", type=str, required=True,
-                   help="a single-task zoo model: afm, autoint, bst, dcn, deepcrossing, "
-                   "deepfm, dien, din, ffm, fibinet, flen, fwfm, pnn, widedeep, xdeepfm "
-                   "(esmm, mmoe and ple are not ported yet)")
+                   help="a zoo model: afm, autoint, bst, dcn, deepcrossing, deepfm, dien, "
+                   "din, esmm, ffm, fibinet, flen, fwfm, mmoe, ple, pnn, widedeep, xdeepfm")
     # data
     p.add_argument("--train_data", type=str, default=None)
     p.add_argument("--eval_data", type=str, default=None)
@@ -159,8 +165,6 @@ def model_config_from_args(args):
 def _refuse_unported(args) -> None:
     """Raise for every asked-for path the port does not have yet."""
     unported = [
-        (args.model not in MODEL_CLASSES,
-         f"model {args.model!r} (ported: {sorted(MODEL_CLASSES)}; ROADMAP A)"),
         (args.train_data or args.eval_data,
          "--train_data/--eval_data (parquet and npz loading; ROADMAP A12)"),
         (args.synthetic_calibrated, "--synthetic_calibrated (ROADMAP A12)"),
@@ -260,11 +264,14 @@ def main(argv=None) -> int:
     if mgr.has_best():
         state = mgr.restore_best(state)
     stats = run_eval(args.num_epochs)
-    primary = next(iter(trainer.label_cols))
+    primary = trainer.primary_head(stats["predictions"])
+    # ESMM's primary head "ctr" predicts the first task's label
+    label_col = (trainer.label_cols[primary] if primary in trainer.label_cols
+                 else trainer.label_cols[model_cfg.tasks[0]])
     mask = stats["valid"] > 0
     path = export_predictions(
         args.output_dir,
-        stats["labels"][mask, trainer.label_cols[primary]],
+        stats["labels"][mask, label_col],
         stats["predictions"][primary][mask],
         label_name=args.label,
     )

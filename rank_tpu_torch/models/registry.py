@@ -1,9 +1,9 @@
 """Model registry (port of ``rank_tpu/models/registry.py``).
 
 ``DEFAULT_CONFIGS`` is the JAX package's, whole: each reference model's
-best-AUC hyperparameters (BASELINE.md). ``MODEL_CLASSES`` holds the 15
-single-task models; asking for a multi-task one (esmm, mmoe, ple) raises
-``NotImplementedError`` until the multi-task slice.
+best-AUC hyperparameters (BASELINE.md). ``MODEL_CLASSES`` holds all 18
+models of the JAX registry: the 15 single-task models and the multi-task
+ESMM, MMOE and PLE (``MULTI_TASK_MODELS``).
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ from ..features import FeatureSchema
 from .base import ModelConfig, RankModel
 from .cross_family import DCN, AutoInt, DeepCrossing, FiBiNet, XDeepFM
 from .fm_family import AFM, FFM, FLEN, PNN, DeepFM, FwFM, WideDeep
+from .multitask import ESMM, MMOE, PLE
 from .sequence import BST, DIEN, DIN
 
 MODEL_CLASSES: Dict[str, Type[RankModel]] = {
@@ -34,6 +35,9 @@ MODEL_CLASSES: Dict[str, Type[RankModel]] = {
     "autoint": AutoInt,
     "flen": FLEN,
     "bst": BST,
+    "esmm": ESMM,
+    "mmoe": MMOE,
+    "ple": PLE,
 }
 
 MULTI_TASK_MODELS = {"esmm", "mmoe", "ple"}
@@ -94,11 +98,6 @@ def build_model(
     None) on the CPU, then move it to ``device``."""
     device = resolve_device(device)
     if cfg.name not in MODEL_CLASSES:
-        if cfg.name in DEFAULT_CONFIGS:
-            raise NotImplementedError(
-                f"model {cfg.name!r} is not ported to rank_tpu_torch yet; "
-                f"ported: {sorted(MODEL_CLASSES)}"
-            )
         raise ValueError(
             f"unknown model {cfg.name!r}; available: {sorted(DEFAULT_CONFIGS)}"
         )

@@ -5,9 +5,13 @@ Requests are padded up to the nearest power-of-two bucket (>= min_bucket)
 by repeating row 0, so the kernels see a handful of shapes, as the JAX
 package's compiled programs do.
 
+Heads, as in the JAX ``apply_fn``: ``{"score"}`` for a single-task model,
+``{task}`` (sigmoid of each task's logit) for MMOE and PLE, and ESMM's
+``{"ctr", "ctcvr"}`` probabilities.
+
 ``model_dir`` is read as the port's CLI writes it: the ``best_model``
-state dict (``train/checkpoint.py``). Not ported yet: ``weights_dtype``,
-``export_serving_artifact`` and multi-task heads.
+state dict (``train/checkpoint.py``). Not ported yet: ``weights_dtype``
+and ``export_serving_artifact`` (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -60,7 +64,7 @@ class Predictor:
 
     def __call__(self, batch: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
         """batch: loader-layout feature dict (no labels required).
-        Returns {"score": (N,) probabilities}."""
+        Returns {head: (N,) probabilities}."""
         n = next(iter(batch.values())).shape[0]
         b = _bucket(n, self.min_bucket)
         padded = {}
@@ -72,5 +76,11 @@ class Predictor:
                 v = np.concatenate([v, np.repeat(v[:1], b - n, axis=0)], axis=0)
             padded[k] = torch.from_numpy(v).to(self.device)
         with torch.inference_mode():
-            logits = self.model(padded)["logits"]
-            return {"score": torch.sigmoid(logits)[:n].cpu().numpy()}
+            out = self.model(padded)
+            if "probs" in out:
+                heads = out["probs"]
+            elif isinstance(out["logits"], dict):
+                heads = {task: torch.sigmoid(logit) for task, logit in out["logits"].items()}
+            else:
+                heads = {"score": torch.sigmoid(out["logits"])}
+            return {head: p[:n].cpu().numpy() for head, p in heads.items()}

@@ -7,9 +7,12 @@
     and the random generators' states, every ``save_checkpoints_steps``
     epochs, with the metrics in a JSON sidecar
     ``checkpoint_epoch_N_metrics.json``; ``--resume`` restores the latest.
+    GradNorm's state (``mtl``: weights, initial losses) and PCGrad's
+    generator go with it, as the JAX package saves its whole state.
 
 A training state is the dict ``Trainer.init_state`` returns: ``model``,
-``optimizer`` and ``step``.
+``optimizer`` and ``step``, and ``mtl`` or ``pcgrad_generator`` under
+those task weightings.
 """
 
 from __future__ import annotations
@@ -68,16 +71,18 @@ class CheckpointManager:
     # -- full checkpoints (resume) ------------------------------------------
 
     def save_epoch(self, state: Dict[str, Any], epoch: int, metrics: Dict[str, float]) -> None:
-        torch.save(
-            {
-                "model": state["model"].state_dict(),
-                "optimizer": state["optimizer"].state_dict(),
-                "step": int(state["step"]),
-                "epoch": int(epoch),
-                "rng": _rng_states(),
-            },
-            self._save_path(f"checkpoint_epoch_{epoch}"),
-        )
+        payload = {
+            "model": state["model"].state_dict(),
+            "optimizer": state["optimizer"].state_dict(),
+            "step": int(state["step"]),
+            "epoch": int(epoch),
+            "rng": _rng_states(),
+        }
+        if "mtl" in state:
+            payload["mtl"] = state["mtl"]
+        if "pcgrad_generator" in state:
+            payload["pcgrad_generator"] = state["pcgrad_generator"].get_state()
+        torch.save(payload, self._save_path(f"checkpoint_epoch_{epoch}"))
         with open(self._path(f"checkpoint_epoch_{epoch}_metrics.json"), "w") as f:
             json.dump({k: float(v) for k, v in metrics.items()}, f)
 
@@ -108,6 +113,10 @@ class CheckpointManager:
         state["model"].load_state_dict(payload["model"])
         state["optimizer"].load_state_dict(payload["optimizer"])
         state["step"] = payload["step"]
+        if "mtl" in state:
+            state["mtl"] = payload["mtl"]
+        if "pcgrad_generator" in state:
+            state["pcgrad_generator"].set_state(payload["pcgrad_generator"])
         _set_rng_states(payload["rng"])
         return state, payload["epoch"]
 

@@ -193,13 +193,14 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 
 def test_unported_model_and_model_dir_raise(tmp_path):
-    """An unported model (multi-task) raises; ``model_dir`` serves the saved
-    best model (it raised before the checkpoint port) and a directory
-    without one raises."""
+    """A model asked for with a path not ported yet (the table-sharded
+    ``psum`` embedding lookup) raises; ``model_dir`` serves the saved best
+    model (it raised before the checkpoint port) and a directory without
+    one raises."""
     from rank_tpu_torch.train import CheckpointManager
 
     with pytest.raises(NotImplementedError, match="not ported"):
-        build_model(tiny_schema(), default_config("mmoe"), device="cpu")
+        build_model(tiny_schema(), default_config("din", embedding_mode="psum"), device="cpu")
     schema, cfg = tiny_schema(), default_config("din", hidden_units=(8,))
     model = build_model(schema, cfg, device="cpu", generator=torch.Generator().manual_seed(3))
     CheckpointManager(str(tmp_path / "ckpt")).save_best({"model": model})
@@ -235,7 +236,8 @@ def test_port_imports_nothing_of_jax():
         "rank_tpu_torch.ops.cross, rank_tpu_torch.ops.fm, rank_tpu_torch.ops.product, "
         "rank_tpu_torch.ops.senet, rank_tpu_torch.ops.autoint, rank_tpu_torch.ops.transformer, "
         "rank_tpu_torch.ops.rnn, rank_tpu_torch.models.fm_family, "
-        "rank_tpu_torch.models.cross_family, rank_tpu_torch.models.sequence; "
+        "rank_tpu_torch.models.cross_family, rank_tpu_torch.models.sequence, "
+        "rank_tpu_torch.models.multitask, rank_tpu_torch.train.mtl; "
         "new = {m.split('.')[0] for m in set(sys.modules) - before}; "
         "assert not new & {'jax', 'flax', 'rank_tpu'}, new"
     )

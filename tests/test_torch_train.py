@@ -5,7 +5,9 @@
   * BatchNorm in train mode and global-norm clipping against flax/optax;
   * train-step parity for xdeepfm and din at dropout 0: the first step's
     loss and gradients, then parameters and BatchNorm running statistics
-    after 3 Adam steps, from the same carried-over weights and batches;
+    after 3 Adam steps, from the same carried-over weights and batches
+    (``check_train_step_parity``, which the zoo and multi-task files use
+    too, under every task weighting);
   * the CLI on ``--device=cpu``: a tiny run end to end, resume, the
     best-model reload, ``Predictor(model_dir=...)``, and the error paths.
 
@@ -33,6 +35,7 @@ from rank_tpu.models import default_config as jax_default_config
 from rank_tpu.train import TrainConfig as JaxTrainConfig
 from rank_tpu.train import Trainer as JaxTrainer
 from rank_tpu.train import metrics as JM
+from rank_tpu.train import mtl as jmtl
 from rank_tpu.train.staged import _pad_rows as jax_pad_rows
 from rank_tpu_torch import WECHAT_SCHEMA, Predictor, default_config, tiny_schema
 from rank_tpu_torch.cli import build_parser, main, model_config_from_args
@@ -209,11 +212,42 @@ def bn_fed_bias_noise(tower: str, layers: int, lr: float, steps: int = 3) -> dic
     return noise
 
 
+def jax_first_step(jtrainer, jstate, jbatch):
+    """The JAX trainer's loss and gradient at its first step, as its train
+    step computes them: ``value_and_grad`` of the loss, or under pcgrad and
+    gradnorm the per-task ``jacrev`` combined by ``rank_tpu.train.mtl``
+    with the step's key and the GradNorm state."""
+    rng = jax.random.split(jstate["rng"])[0]
+    mode = jtrainer.mtl_mode
+
+    def first(params, extra, mtl_state, batch, rng):
+        if mode is None:
+            (loss, _), grads = jax.value_and_grad(jtrainer.loss_fn, has_aux=True)(
+                params, extra, batch, rng, True)
+            return loss, grads
+        stacked, (losses, _, _) = jax.jacrev(jtrainer.task_losses_fn, has_aux=True)(
+            params, extra, batch, rng, True)
+        if mode == "pcgrad":
+            weights, loss = jmtl.pcgrad_weights(jmtl.gram_matrix(stacked), rng), jnp.sum(losses)
+        else:
+            mask = jmtl.shared_param_mask(params, jmtl.default_task_specific)
+            cfg = jtrainer.model_cfg
+            weights, _ = jmtl.gradnorm_update(mtl_state, losses,
+                                              jmtl.shared_grad_norms(stacked, mask),
+                                              cfg.gradnorm_alpha, cfg.gradnorm_lr)
+            loss = jnp.sum(weights * losses)
+        return loss, jmtl.combine_stacked(stacked, weights)
+
+    loss, grads = jax.jit(first)(jstate["params"], jstate["extra"], jstate.get("mtl"), jbatch, rng)
+    return float(loss), jax.device_get(grads)
+
+
 def check_train_step_parity(name: str, overrides: dict, noise: dict, lr: float = 0.005):
     """One JAX trainer and one port trainer from the same weights (the JAX
     init, carried over) and the same three batches. Step 1: loss and every
     gradient. After 3 Adam steps: every parameter and BatchNorm running
-    statistic.
+    statistic. Under gradnorm, GradNorm's weights and initial losses after
+    every step.
 
     Hazard: a Dense bias that feeds a BatchNorm (a bn_act tower) has a
     gradient that is zero up to rounding, and Adam turns that noise into
@@ -231,14 +265,13 @@ def check_train_step_parity(name: str, overrides: dict, noise: dict, lr: float =
     jstate = jtrainer.init_state(batches[0])
     variables0 = _variables(jstate)
     jbatches = [jtrainer._host_to_device(b) for b in batches]
-    grad_fn = jax.jit(jax.value_and_grad(jtrainer.loss_fn, has_aux=True), static_argnums=4)
-    (jloss, _), jgrads = grad_fn(
-        jstate["params"], jstate["extra"], jbatches[0], jax.random.PRNGKey(0), True)
-    jgrads = jax.device_get(jgrads)
+    jloss, jgrads = jax_first_step(jtrainer, jstate, jbatches[0])
     step = jtrainer._get_compiled("train")
     jmeters = jtrainer.meters_init()
+    jmtl_states = []
     for b in jbatches:
         jstate, jmeters = step(jstate, jmeters, b)
+        jmtl_states.append(jax.device_get(jstate.get("mtl")))
 
     trainer = Trainer(schema, default_config(name, **overrides),
                       TrainConfig(batch_size=PARITY_BS, learning_rate=lr, log_every=0),
@@ -247,9 +280,16 @@ def check_train_step_parity(name: str, overrides: dict, noise: dict, lr: float =
     model = state["model"]
     model.load_state_dict(state_dict_from_flax(model, variables0))
     meters = trainer.meters_init()
-    trainer.train_step(state, meters, trainer.to_device(batches[0]))
 
-    np.testing.assert_allclose(float(meters["loss"]), float(jloss), **TOL)
+    def take_step(i):
+        trainer.train_step(state, meters, trainer.to_device(batches[i]))
+        if jmtl_states[i] is not None:
+            for key in ("w", "l0"):
+                np.testing.assert_allclose(state["mtl"][key].numpy(), jmtl_states[i][key], **TOL,
+                                           err_msg=f"GradNorm {key} after step {i + 1}")
+
+    take_step(0)
+    np.testing.assert_allclose(float(meters["loss"]), jloss, **TOL)
     want_grads = state_dict_from_flax(model, {**variables0, "params": jgrads})
     params = dict(model.named_parameters())
     assert len(params) > 10
@@ -257,8 +297,8 @@ def check_train_step_parity(name: str, overrides: dict, noise: dict, lr: float =
         np.testing.assert_allclose(p.grad.numpy(), want_grads[key].numpy(), **TOL,
                                    err_msg=f"gradient of {key}")
 
-    for b in batches[1:]:
-        trainer.train_step(state, meters, trainer.to_device(b))
+    for i in range(1, len(batches)):
+        take_step(i)
     assert state["step"] == 3
     np.testing.assert_allclose(float(meters["loss"]), float(jmeters["loss"]), **TOL)
     want = state_dict_from_flax(model, _variables(jstate))
@@ -271,7 +311,7 @@ def check_train_step_parity(name: str, overrides: dict, noise: dict, lr: float =
         tol = dict(rtol=0, atol=noise[key]) if key in noise else TOL
         np.testing.assert_allclose(value.numpy(), want[key].numpy(), **tol,
                                    err_msg=f"{key} after 3 steps")
-    return got
+    return got, state
 
 
 @pytest.mark.parametrize("name", ["xdeepfm", "din"])
@@ -282,7 +322,7 @@ def test_train_step_parity(name):
     noise too, and it is compared at atol = steps * lr."""
     lr = 0.005
     noise = bn_fed_bias_noise("dnn", 2, lr) if name == "xdeepfm" else {"attention.b3": 3 * lr}
-    got = check_train_step_parity(name, PARITY_OVERRIDES[name], noise, lr)
+    got, _ = check_train_step_parity(name, PARITY_OVERRIDES[name], noise, lr)
     assert any("running_var" in k for k in got)
 
 
@@ -337,7 +377,6 @@ def test_cli_error_paths(tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--model=mmoe"],
     ["--model=din", "--synthetic=0", "--train_data=a.parquet", "--eval_data=b.parquet",
      "--vocabulary_dir=v"],
     ["--model=din", "--synthetic_calibrated=0.1"],
@@ -377,7 +416,11 @@ def test_training_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         main(["--model=xdeepfm", "--synthetic=10", f"--model_dir={tmp_path}/m",
               f"--output_dir={tmp_path}/o"])
-    with pytest.raises(NotImplementedError, match="multi-task"):
-        Trainer(tiny_schema(), default_config("mmoe"), device="cpu")
-    with pytest.raises(NotImplementedError, match="pcgrad"):
+    # a multi-task model builds on the CPU when asked to; pcgrad needs one
+    # with a logit head a task, as in the JAX trainer
+    trainer = Trainer(tiny_schema(), default_config("mmoe"), device="cpu")
+    assert sorted(trainer.init_state()["model"](
+        trainer.to_device(make_synthetic_dataset(tiny_schema(), num_rows=4)))["logits"]) == sorted(
+        default_config("mmoe").tasks)
+    with pytest.raises(ValueError, match="pcgrad"):
         Trainer(tiny_schema(), default_config("xdeepfm", task_weighting="pcgrad"), device="cpu")

@@ -326,15 +326,18 @@ def test_model_forward_matches_jax_bf16_defaults(name, width):
 
 
 def test_registry_holds_the_single_task_zoo():
-    """The 15 single-task models of the JAX registry; multi-task ones raise."""
+    """All 18 models of the JAX registry: the 15 single-task models and the
+    multi-task ones, which build too; an unknown name raises."""
     from rank_tpu.models.registry import MODEL_CLASSES as JAX_CLASSES
     from rank_tpu_torch.models import MULTI_TASK_MODELS
 
-    assert sorted(MODEL_CLASSES) == sorted(set(JAX_CLASSES) - MULTI_TASK_MODELS)
-    assert len(MODEL_CLASSES) == 15 and set(NEW_MODELS) <= set(MODEL_CLASSES)
+    assert sorted(MODEL_CLASSES) == sorted(JAX_CLASSES)
+    assert len(MODEL_CLASSES) == 18 and set(NEW_MODELS) <= set(MODEL_CLASSES)
+    assert MULTI_TASK_MODELS == {"esmm", "mmoe", "ple"} <= set(MODEL_CLASSES)
     for name in MULTI_TASK_MODELS:
-        with pytest.raises(NotImplementedError, match="not ported"):
-            build_model(tiny_schema(), default_config(name), device="cpu")
+        assert build_model(tiny_schema(), default_config(name), device="cpu").cfg.name == name
+    with pytest.raises(ValueError, match="unknown model"):
+        build_model(tiny_schema(), default_config("din").replace(name="nosuch"), device="cpu")
 
 
 def test_new_models_raise_without_cuda(monkeypatch, tmp_path):

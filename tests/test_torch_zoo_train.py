@@ -42,6 +42,6 @@ CASES = {
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_zoo_train_step_parity(name):
     overrides, noise = CASES[name]
-    got = check_train_step_parity(name, overrides, noise, LR)
+    got, _ = check_train_step_parity(name, overrides, noise, LR)
     if name == "dien":
         assert "aux_proj.weight" in got
