@@ -2,7 +2,8 @@
 
 Run from the repository root on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                  # every phase and the result lines
+    python3 chip_smoke.py --kernels-only   # phases 1-3: build, kernels vs plain
 
 Phases; any failure raises and the script exits non-zero:
 
@@ -13,7 +14,7 @@ Phases; any failure raises and the script exits non-zero:
      the build time and the compiler's register and shared-memory report;
      then ``cuobjdump -sass`` of each library counts the tensor-core
      instructions (HMMA, HGMMA) of each kernel, and fails if a kernel has
-     none;
+     none (B1's generic kernel, on the CUDA cores by design, apart);
   3. kernels vs plain: each kernel against its plain torch version on the
      card, within rtol/atol 1e-5: B1 (DIN attention) at B in {1, 7, 256,
      1024, 8192}, lengths that include 0, 1, 15, 16, 17, 49 and 50, both
@@ -21,8 +22,15 @@ Phases; any failure raises and the script exits non-zero:
      instantiations); B2 (one CIN layer) at both layers' shapes of the
      default xDeepFM and B in {1, 7, 256, 1001, 1024, 8192} (B = 1001: rows
      that are not a multiple of the block's row tile), one shape whose H
-     and O need padding and one with O over three output tiles; and for
-     both, the gradients through their autograd Function against autograd
+     and O need padding and one with O over three output tiles; then the
+     shapes past the kernels' former limits (fault C2), each error also
+     against f64: B1 at D = 12 and 128 and hidden widths (32, 16) and
+     (64, 64) (its generic kernel), T = 4096 at D = 16 and T = 1024 at
+     D = 64 (its tensor-core kernel), both softmax modes, and B2 at
+     H = 300 and at F = 80, at B in {7, 1024}; the registered operators on
+     bf16 inputs against the plain version run on the same inputs in f32,
+     to one bf16 ulp (plus the f32 1e-5 near zero); and for both kernels, the gradients through their
+     autograd Function and their registered operator against autograd
      through the plain version, at B = 1024;
   4. main paths, each with the launch counts zeroed just before it and
      read just after; every kernel of the path must have launched:
@@ -33,14 +41,21 @@ Phases; any failure raises and the script exits non-zero:
         ``predictions.csv`` must exist and eval AUC must pass 0.6 (a
         learning-sanity bar). Then ``--model=din`` at 50,000 rows: B1 must
         launch, and the attention weights must move from their initial
-        values (their gradient flows through B1's autograd Function);
+        values (their gradient flows through B1's operator);
      b. serving from ``model_dir``: ``Predictor`` serves the xDeepFM run's
         best model through B2, held against the same weights served with
-        the plain CIN to 1e-5;
+        the plain CIN to 1e-5; then at ``weights_dtype='bfloat16'`` (B2 must
+        launch), against the f32 Predictor to 2e-2 and the CPU's bf16
+        Predictor to 1e-2; then exported (``export_serving_artifact`` on
+        the card, ``load_serving_artifact``): the loaded artifact must
+        launch B2 and match the Predictor to rtol = atol = 1e-6;
      c. serving DIN at full width (random seeded weights, random BatchNorm
         statistics and Dice alphas) for requests of 1, 100, 1000 and 5000
         rows, held against the plain attention; a profiler trace of one
-        request must show B1 on the device;
+        request must show B1 on the device. Then the same weights at bf16
+        for 1, 1000 and 5000 rows (B1 must launch), held like xDeepFM's,
+        with the latency and the profiler's gather time at 5000 rows at f32
+        and at bf16; and exported like xDeepFM (B1 must launch);
      d. the rest of the single-task zoo (slice 4: afm, autoint, bst, dcn,
         deepcrossing, deepfm, dien, ffm, fibinet, flen, fwfm, pnn,
         widedeep), which runs no hand-written kernel: each trains through
@@ -61,7 +76,13 @@ Phases; any failure raises and the script exits non-zero:
         Each run's loss must be finite and every task AUC above 0.6; under
         gradnorm the saved GradNorm weights must sum to T and have moved
         from 1. Each ``model_dir`` is served like the zoo's, every head
-        on the card against the CPU at f32 to 1e-5;
+        on the card against the CPU at f32 to 1e-5; PLE's is also exported
+        and its artifact held to its Predictor, every head;
+     f. the shapes past the kernels' former limits through ``Predictor``
+        (slice 6): DIN with a 12-wide feedid table (B1's generic kernel),
+        DIN over histories of 4096 and xDeepFM with CIN layers (600, 128),
+        random seeded weights, 1000 rows, each against the plain versions
+        to 1e-5; each kernel variant must launch;
   5. times on the card: each kernel, its plain version (no yardstick of
      speed: it repeats the kernel's arithmetic in unfused torch ops), the
      one PyTorch call that computes the same function where there is one
@@ -69,20 +90,26 @@ Phases; any failure raises and the script exits non-zero:
      outside the tensor cores (``bound_ms``) and through the tensor cores
      in 3xTF32 (``bound_tc_ms``; ``bound_mma_sync_ms`` at the mma.sync TF32
      rate measured first by ``csrc/mma_ceiling.cu``), by CUDA events with
-     a cold L2, at B in {256, 1024, 8192} (B2: both layers); Predictor
-     latency per request size by host clock, kernel and plain in turns;
-     and profiler traces of xDeepFM, BST, DIEN, MMOE and MMOE under PCGrad
-     train steps (B = 1024): step time, the top device operations,
-     launches a step and the device-busy share.
+     a cold L2, at B in {256, 1024, 8192} (B2: both layers) and at the C2
+     shapes at B = 1024; Predictor latency per request size by host clock,
+     kernel and plain in turns; the host time a call of B1's registered
+     operator, the promoting ``Linear`` and BatchNorm's eval path adds
+     over a direct call, and what that adds to a 1-row DIN request;
+     and profiler traces of xDeepFM, BST, DIEN,
+     MMOE and MMOE under PCGrad train steps (B = 1024): step time, the top
+     device operations, launches a step and the device-busy share.
 
-Then it prints one line ``{"kernels": [...]}``, the card's line and, last,
+Then it prints one line ``{"kernels": [...]}`` (a row for each kernel
+variant, with the C2 shapes it ran), the card's line and, last,
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import argparse
 import concurrent.futures
 import ctypes
+import dataclasses
 import json
 import math
 import os
@@ -96,7 +123,8 @@ import time
 import numpy as np
 import torch
 
-from rank_tpu_torch import WECHAT_SCHEMA, Predictor, build_model, default_config
+from rank_tpu_torch import (WECHAT_SCHEMA, Predictor, build_model, default_config,
+                            export_serving_artifact, load_serving_artifact)
 from rank_tpu_torch import cli
 from rank_tpu_torch.data.synthetic import make_synthetic_dataset
 from rank_tpu_torch.ops.cin import xavier_uniform_
@@ -138,8 +166,29 @@ PEAK_HBM_BYTES = 3.35e12
 TIMED_B = (256, 1024, 8192)
 RAGGED_LENGTHS = (0, 1, 15, 16, 17, 49, 50)
 # (H, F, O) of B2 checks beside the default xDeepFM's layers: H and O that
-# the kernel pads, and O over three 128-wide output tiles, the last partial.
-OTHER_CIN_SHAPES = {"padded": (12, 5, 10), "wide": (64, 7, 300)}
+# the kernel pads, O over three 128-wide output tiles, the last partial,
+# and the shapes past the limits the kernel once had (H <= 256, F <= 64),
+# whose rows it stages in several panels.
+OTHER_CIN_SHAPES = {"padded": (12, 5, 10), "wide": (64, 7, 300), "h300": (300, 7, 128),
+                    "f80": (64, 80, 128)}
+C2_CIN_SHAPES = ("h300", "f80")
+# B1 shapes past the limits it once had (D in {8, 16, 32, 64}, hidden
+# widths (64, 32), T bounded by shared memory): (name, T, D, hidden).
+C2_DIN_SHAPES = (("D12", 50, 12, (64, 32)), ("D128", 50, 128, (64, 32)),
+                 ("hidden32x16", 50, 16, (32, 16)), ("hidden64x64", 50, 16, (64, 64)),
+                 ("T4096", 4096, 16, (64, 32)), ("T1024_D64", 1024, 64, (64, 32)))
+C2_B = (7, 1024)
+# The bf16 Predictor against the f32 one (tests/test_serve.py's bar), and
+# the card's bf16 Predictor against the CPU's: on the card B1 and B2
+# compute in f32 what the CPU's plain versions compute in bf16, so the two
+# differ by bf16 rounding, held to the bar tests/test_torch_serve_extras.py
+# states for the port against JAX's bf16 Predictor.
+BF16_VS_F32_ATOL = 2e-2
+BF16_CARD_VS_CPU_ATOL = 1e-2
+# an exported artifact against the Predictor it came from, on the card
+# (the CPU test holds rtol 1e-6 / atol 1e-7, tests/test_serve.py's bar)
+EXPORT_TOL = dict(rtol=1e-6, atol=1e-6)
+EXPORT_BATCH = 256
 
 
 def card_line() -> str:
@@ -189,7 +238,7 @@ def bounds(f32_flops: float, product_flops: float, rest_flops: float, nbytes: fl
                                           mma_sync_tflops * 1e12)}
 
 
-def din_inputs(b: int, gen: torch.Generator, t: int = 50, d: int = 16):
+def din_inputs(b: int, gen: torch.Generator, t: int = 50, d: int = 16, hidden=(64, 32)):
     """DIN attention inputs as the main path makes them: N(0,1) embedding
     rows, lengths uniform in [0, T] with a full last row and, in the first
     rows, the lengths of ``RAGGED_LENGTHS``, and lecun-scaled weights with
@@ -201,7 +250,8 @@ def din_inputs(b: int, gen: torch.Generator, t: int = 50, d: int = 16):
     if b > 1:
         ragged = torch.tensor(RAGGED_LENGTHS[: b], dtype=torch.int32).clamp(max=t)
         lengths[: len(ragged)] = ragged
-    shapes = [(4 * d, 64), (64,), (64, 32), (32,), (32, 1), (1,)]
+    h1, h2 = hidden
+    shapes = [(4 * d, h1), (h1,), (h1, h2), (h2,), (h2, 1), (1,)]
     params = [torch.randn(s, generator=gen) * (s[0] ** -0.5 if len(s) == 2 else 0.3)
               for s in shapes]
     cuda = lambda x: x.cuda().contiguous()
@@ -344,10 +394,15 @@ def build_kernels() -> None:
         check_tensor_cores(name)
 
 
+# kernels on the CUDA cores by design: B1's generic kernel, for the shapes
+# outside the tensor-core kernel's instantiations
+CUDA_CORE_KERNELS = ("din_attention_generic_kernel",)
+
+
 def check_tensor_cores(name: str) -> None:
     """Count the tensor-core instructions in the SASS of each kernel of a
     library (``cuobjdump``, beside ``nvcc`` in the toolkit); fail if a
-    kernel has none."""
+    kernel has none, ``CUDA_CORE_KERNELS`` apart."""
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(_build.library_path(name))],
                           capture_output=True, text=True, check=True, timeout=300).stdout
@@ -358,6 +413,8 @@ def check_tensor_cores(name: str) -> None:
     emit(phase="tensor_cores", library=name, sass_counts=counts)
     check(counts, f"{name}: no kernel found in the SASS")
     for kernel, c in counts.items():
+        if any(k in kernel for k in CUDA_CORE_KERNELS):
+            continue
         check(c["HMMA"] + c["HGMMA"] > 0, f"{name}: {kernel} has no tensor-core instruction")
 
 
@@ -404,33 +461,77 @@ def errors_vs_f64(got: torch.Tensor, want: torch.Tensor, exact: torch.Tensor) ->
             "tolerance_used": ((got - want).double().abs() / allowed).max().item()}
 
 
-def check_din_kernel(gen: torch.Generator) -> float:
-    """B1 against its plain version; returns the largest error at the main
-    paths' shapes (D = 16, B = 256, 1024 and 8192)."""
-    worst = 0.0
-    cases = [(b, 16) for b in (1, 7) + TIMED_B] + [(256, d) for d in (8, 32, 64)]
-    for b, d in cases:
-        q, k, lengths, params = din_inputs(b, gen, d=d)
+def check_against_plain(kernel: str, got: torch.Tensor, want: torch.Tensor,
+                        exact: torch.Tensor, c2_shape: bool) -> None:
+    """The kernel within rtol = atol = 1e-5 of the plain version. At a C2
+    shape (one the kernels once refused), where f32 rounding alone exceeds
+    that, the plain version's rounding is not the target: the kernel must
+    then lie within 1e-5 (absolute and relative) of the f64 function,
+    widened by the largest error the plain f32 version makes on the same
+    inputs. (B1 at T = 4096 without softmax pools 4096 raw-scored keys into
+    outputs up to 1,600; there the plain version lies up to 3.6e-4 from
+    f64 and the kernel 1.7e-4.) Every other shape holds the plain bar."""
+    if not c2_shape:
+        torch.testing.assert_close(got, want, **TOL)
+        return
+    tol = TOL["atol"] + TOL["rtol"] * want.double().abs()
+    if ((got - want).double().abs() <= tol).all():
+        return
+    plain_err = (want.double() - exact).abs().max()
+    allowed = TOL["atol"] + TOL["rtol"] * exact.abs() + plain_err
+    excess = ((got.double() - exact).abs() - allowed).max().item()
+    check(excess <= 0, f"{kernel}: {excess} further from f64 than 1e-5 and the plain "
+          f"version's own error ({plain_err.item()}) allow")
+
+
+def launched_din_kernel(fn):
+    """Run ``fn``; return the B1 variant it launched (one launch exactly)."""
+    before = (din_kernels.din_attention_cuda.launches,
+              din_kernels.din_attention_cuda.generic_launches)
+    out = fn()
+    tc = din_kernels.din_attention_cuda.launches - before[0]
+    generic = din_kernels.din_attention_cuda.generic_launches - before[1]
+    check(tc + generic == 1, f"{tc} tensor-core and {generic} generic launches, want one")
+    return out, "din_attention_fwd" if tc else "din_attention_generic_fwd"
+
+
+def check_din_kernel(gen: torch.Generator):
+    """B1 against its plain version: the main paths' shapes and the other
+    tensor-core instantiations at T = 50, then ``C2_DIN_SHAPES`` at B in
+    ``C2_B``. Returns the largest error at the main paths' shapes (D = 16,
+    B = 256, 1024 and 8192) and the largest error of each kernel variant
+    at the C2 shapes."""
+    worst, c2_worst = 0.0, {}
+    cases = [(b, 50, 16, (64, 32), "") for b in (1, 7) + TIMED_B]
+    cases += [(256, 50, d, (64, 32), "") for d in (8, 32, 64)]
+    cases += [(b, t, d, hidden, name) for b in C2_B for name, t, d, hidden in C2_DIN_SHAPES]
+    for b, t, d, hidden, c2 in cases:
+        q, k, lengths, params = din_inputs(b, gen, t=t, d=d, hidden=hidden)
         for use_softmax in (False, True):
-            got = din_kernels.din_attention_cuda(q, k, lengths, params, use_softmax)
+            got, kernel = launched_din_kernel(
+                lambda: din_kernels.din_attention_cuda(q, k, lengths, params, use_softmax))
             want = din_kernels.din_attention_plain(q, k, lengths, params, use_softmax)
             exact = din_kernels.din_attention_plain(
                 q.double(), k.double(), lengths, [p.double() for p in params], use_softmax)
             torch.cuda.synchronize()
             err = (got - want).abs().max().item()
-            emit(phase="kernel_vs_plain", kernel="din_attention_fwd", B=b, D=d,
-                 use_softmax=use_softmax, max_abs_err=err, **errors_vs_f64(got, want, exact),
+            emit(phase="kernel_vs_plain", kernel=kernel, B=b, T=t, D=d, hidden=list(hidden),
+                 c2_shape=c2 or None, use_softmax=use_softmax, max_abs_err=err,
+                 max_abs_out=want.abs().max().item(), **errors_vs_f64(got, want, exact),
                  lengths=lengths[: len(RAGGED_LENGTHS)].tolist())
-            torch.testing.assert_close(got, want, **TOL)
+            check_against_plain(kernel, got, want, exact, bool(c2))
             if b > 1:
                 check(torch.all(got[0] == 0), "a zero-length row must pool to zeros")
-            if b >= 256 and d == 16:
+            if b >= 256 and (t, d, hidden) == (50, 16, (64, 32)):
                 worst = max(worst, err)
-    return worst
+            if c2:
+                c2_worst[kernel] = max(c2_worst.get(kernel, 0.0), err)
+    return worst, c2_worst
 
 
 def check_cin_kernel(gen: torch.Generator) -> float:
-    """B2 against its plain version at both layers' shapes; returns the
+    """B2 against its plain version at both layers' shapes, the shapes of
+    ``OTHER_CIN_SHAPES`` and the C2 shapes at B in ``C2_B``; returns the
     largest error. A sum of up to H*F = 448 products in another order than
     the plain version's, each in 3xTF32, whose error is of the order of an
     f32 product's (tests/test_torch_tensor_core_operands.py): at these
@@ -438,7 +539,8 @@ def check_cin_kernel(gen: torch.Generator) -> float:
     = 1e-5."""
     worst = 0.0
     cases = [(b, layer) for b in (1, 7, 256, 1001, 1024, 8192) for layer in (0, 1)]
-    for b, layer in cases + [(7, name) for name in OTHER_CIN_SHAPES]:
+    cases += [(7, name) for name in OTHER_CIN_SHAPES] + [(1024, name) for name in C2_CIN_SHAPES]
+    for b, layer in cases:
         xk_t, x0_t, w = cin_inputs(b, layer, gen)
         got = cin_kernels.cin_layer_cuda_t(xk_t, x0_t, w)
         want = cin_kernels.cin_layer_plain_t(xk_t, x0_t, w)
@@ -449,7 +551,7 @@ def check_cin_kernel(gen: torch.Generator) -> float:
              shape=[list(xk_t.shape), list(x0_t.shape), list(w.shape)],
              max_abs_err=err, max_abs_out=want.abs().max().item(),
              **errors_vs_f64(got, want, exact))
-        torch.testing.assert_close(got, want, **TOL)
+        check_against_plain("cin_layer_fwd", got, want, exact, layer in C2_CIN_SHAPES)
         worst = max(worst, err)
     return worst
 
@@ -461,23 +563,31 @@ def grads_of(fn, inputs, g):
 
 
 def check_gradients(gen: torch.Generator) -> None:
-    """Each kernel's autograd Function against autograd through the plain
-    version at B = 1024: outputs within the kernel tolerance, gradients too
-    (both backward passes recompute the plain version)."""
+    """Each kernel's autograd Function, and its registered operator (the
+    training path's), against autograd through the plain version at
+    B = 1024: outputs within the kernel tolerance, gradients too (every
+    backward pass recomputes the plain version)."""
     q, k, lengths, params = din_inputs(1024, gen)
     g = torch.randn(1024, 16, generator=gen).cuda()
+    plain = lambda q, k, *p: din_kernels.din_attention_plain(q, k, lengths, p, True)  # noqa: E731
     cases = {
         "din_attention_fwd": (
+            lambda q, k, *p: din_kernels.DINAttentionFn.apply(
+                din_kernels.din_attention_cuda, True, q, k, lengths, *p),
+            plain, (q, k, *params), g),
+        "din_attention_fwd/operator": (
             lambda q, k, *p: din_kernels.din_attention_cuda_fn(q, k, lengths, p, True),
-            lambda q, k, *p: din_kernels.din_attention_plain(q, k, lengths, p, True),
-            (q, k, *params), g),
+            plain, (q, k, *params), g),
     }
     for layer in (0, 1):
         xk_t, x0_t, w = cin_inputs(1024, layer, gen)
         inputs = (xk_t, x0_t, w) if layer else (x0_t.clone(), x0_t, w)
+        g = torch.randn(1024, 16, 128, generator=gen).cuda()
         cases[f"cin_layer_fwd/layer{layer}"] = (
-            cin_kernels.cin_layer_cuda_fn_t, cin_kernels.cin_layer_plain_t, inputs,
-            torch.randn(1024, 16, 128, generator=gen).cuda())
+            lambda *x: cin_kernels.CINLayerFn.apply(cin_kernels.cin_layer_cuda_t, *x),
+            cin_kernels.cin_layer_plain_t, inputs, g)
+        cases[f"cin_layer_fwd/layer{layer}/operator"] = (
+            cin_kernels.cin_layer_cuda_fn_t, cin_kernels.cin_layer_plain_t, inputs, g)
     for name, (kernel_fn, plain_fn, inputs, g) in cases.items():
         got, got_grads = grads_of(kernel_fn, inputs, g)
         want, want_grads = grads_of(plain_fn, inputs, g)
@@ -488,6 +598,50 @@ def check_gradients(gen: torch.Generator) -> None:
             errs.append((a - b).abs().max().item())
         emit(phase="gradient_vs_plain", kernel=name, B=1024, max_abs_err=max(errs),
              grads=len(errs))
+
+
+def bf16_ulps(got: torch.Tensor, want: torch.Tensor):
+    """(largest |got - want| in units of want's bf16 ulp, largest share used
+    of the allowance: one bf16 ulp plus the kernels' f32 tolerance)."""
+    _, exponent = torch.frexp(want.float())
+    ulp = torch.ldexp(torch.ones_like(want, dtype=torch.float32), exponent - 8)
+    diff = (got.float() - want.float()).abs()
+    allowed = ulp + TOL["atol"] + TOL["rtol"] * want.float().abs()
+    return (diff / ulp).max().item(), (diff / allowed).max().item()
+
+
+def check_bf16_inputs(gen: torch.Generator) -> None:
+    """The registered operators on bf16 inputs (the bf16 Predictor's): cast
+    to f32, the kernel, the result cast back to bf16, against the plain
+    version run on the same inputs cast to f32, then rounded to bf16. Two
+    f32 results within the kernels' 1e-5 of each other round to bf16 values
+    at most one bf16 ulp plus that 1e-5 apart; the 1e-5 decides only near
+    zero, where a bf16 ulp is smaller."""
+    bf16 = lambda x: x.to(torch.bfloat16)  # noqa: E731
+    for d, hidden in ((16, (64, 32)), (12, (64, 32))):
+        q, k, lengths, params = din_inputs(1024, gen, d=d, hidden=hidden)
+        q, k, params = bf16(q), bf16(k), tuple(map(bf16, params))
+        for use_softmax in (False, True):
+            got, kernel = launched_din_kernel(
+                lambda: din_kernels.din_attention(q, k, lengths, params, use_softmax))
+            want = bf16(din_kernels.din_attention_plain(
+                q.float(), k.float(), lengths, [p.float() for p in params], use_softmax))
+            check(got.dtype == torch.bfloat16, f"{kernel} returned {got.dtype} for bf16 inputs")
+            ulps, used = bf16_ulps(got, want)
+            emit(phase="bf16_inputs_vs_plain", kernel=kernel, B=1024, D=d, hidden=list(hidden),
+                 use_softmax=use_softmax, max_bf16_ulps=ulps, allowance_used=used)
+            check(used <= 1.0, f"{kernel} on bf16 inputs: {used} of the allowance")
+    for layer in (0, 1):
+        xk_t, x0_t, w = map(bf16, cin_inputs(1024, layer, gen))
+        before = cin_kernels.cin_layer_cuda_t.launches
+        got = cin_kernels.cin_layer_t(xk_t, x0_t, w)
+        check(cin_kernels.cin_layer_cuda_t.launches == before + 1, "cin_layer_fwd did not launch")
+        want = bf16(cin_kernels.cin_layer_plain_t(xk_t.float(), x0_t.float(), w.float()))
+        check(got.dtype == torch.bfloat16, f"cin_layer_fwd returned {got.dtype} for bf16 inputs")
+        ulps, used = bf16_ulps(got, want)
+        emit(phase="bf16_inputs_vs_plain", kernel="cin_layer_fwd", B=1024, layer=layer,
+             max_bf16_ulps=ulps, allowance_used=used)
+        check(used <= 1.0, f"cin_layer_fwd on bf16 inputs: {used} of the allowance")
 
 
 # -- phase 4 ------------------------------------------------------------------
@@ -593,6 +747,12 @@ def serve_xdeepfm(model_dir: str) -> None:
         check(got.shape == (n,) and np.all(np.isfinite(got)) and np.all((got > 0) & (got < 1)),
               f"{n} rows: scores not finite, of the wrong shape or outside (0, 1)")
         np.testing.assert_allclose(got, want, **TOL)
+    requests = {n: {k: v[:n] for k, v in data.items() if k != "labels"} for n in (1, 1000, 5000)}
+    state_dict = pred.model.state_dict()
+    serve_bf16("xdeepfm", WECHAT_SCHEMA, cfg, state_dict, pred, requests, "cin_layer_fwd",
+               per_request=len(cfg.cin_layer_sizes))
+    launches = check_export("xdeepfm", pred)
+    check(launches["cin_layer_fwd"] == 2, f"the loaded xDeepFM artifact launched {launches}")
 
 
 def randomize_eval_state(model: torch.nn.Module, gen: torch.Generator) -> None:
@@ -657,6 +817,145 @@ def serve_din(gen: torch.Generator, card: str):
     # profiler itself slows the host several times over)
     emit(phase="device_busy_serve_din", rows=max(REQUEST_ROWS),
          share=device_total_us / 1e3 / latency[max(REQUEST_ROWS)], card=card)
+    serve_din_bf16(pred, state_dict, requests, card)
+    launches = check_export("din", pred)
+    check(launches["din_attention_fwd"] == 1, f"the loaded DIN artifact launched {launches}")
+
+
+def kernel_launches() -> dict:
+    return {"din_attention_fwd": din_kernels.din_attention_cuda.launches,
+            "din_attention_generic_fwd": din_kernels.din_attention_cuda.generic_launches,
+            "cin_layer_fwd": cin_kernels.cin_layer_cuda_t.launches}
+
+
+def zero_launches() -> None:
+    din_kernels.din_attention_cuda.launches = 0
+    din_kernels.din_attention_cuda.generic_launches = 0
+    cin_kernels.cin_layer_cuda_t.launches = 0
+
+
+def gathers(events):
+    """Device us of the embedding gathers in a trace (nn.Embedding's
+    index_select kernels: names with 'index' or 'gather') and their names."""
+    picked = [e for e in events if re.search(r"index|gather", e.key, re.IGNORECASE)]
+    return sum(device_us(e) for e in picked), sorted({e.key[:80] for e in picked})
+
+
+def serve_bf16(model: str, schema, cfg, state_dict, f32_pred, requests, kernel: str,
+               per_request: int = 1) -> Predictor:
+    """``Predictor(weights_dtype='bfloat16')`` on the card: ``kernel`` must
+    launch ``per_request`` times a request, and every head must track the f32 Predictor to
+    ``BF16_VS_F32_ATOL`` and the CPU's bf16 Predictor to
+    ``BF16_CARD_VS_CPU_ATOL``."""
+    pred = Predictor(schema, cfg, state_dict=state_dict, weights_dtype="bfloat16")
+    cpu = Predictor(schema, cfg, state_dict=state_dict, weights_dtype="bfloat16", device="cpu")
+    zero_launches()
+    answers = {n: pred(req) for n, req in requests.items()}
+    launches = kernel_launches()
+    check(launches[kernel] == per_request * len(requests),
+          f"{model} bf16 serving launched {kernel} {launches[kernel]} times")
+    for n, heads in answers.items():
+        want_f32, want_cpu = f32_pred(requests[n]), cpu(requests[n])
+        for head, got in heads.items():
+            check(got.shape == (n,) and np.all(np.isfinite(got)), f"{model} bf16 {head}: {n} rows")
+            err_f32 = float(np.max(np.abs(got - want_f32[head])))
+            err_cpu = float(np.max(np.abs(got - want_cpu[head])))
+            emit(phase="serve_bf16", model=model, head=head, rows=n, max_abs_err_vs_f32=err_f32,
+                 max_abs_err_vs_cpu_bf16=err_cpu, launches=launches)
+            np.testing.assert_allclose(got, want_f32[head], rtol=0, atol=BF16_VS_F32_ATOL)
+            np.testing.assert_allclose(got, want_cpu[head], rtol=0, atol=BF16_CARD_VS_CPU_ATOL)
+    return pred
+
+
+def serve_din_bf16(pred, state_dict, requests, card) -> None:
+    """DIN at full width served with bf16 weights (B1 on bf16 inputs), then
+    the latency and the profiler's gather time at 5000 rows, f32 and bf16.
+    bf16 tables halve the gathers' bytes; this records, it claims nothing."""
+    rows = {n: requests[n] for n in ZOO_REQUEST_ROWS}
+    bf16 = serve_bf16("din", WECHAT_SCHEMA, pred.model_cfg, state_dict, pred, rows,
+                      "din_attention_fwd")
+    big = requests[max(ZOO_REQUEST_ROWS)]
+    lat = times_in_turns([lambda: pred(big), lambda: bf16(big)], host_ms, runs=30)
+    for dtype, predictor, times in zip(("float32", "bfloat16"), (pred, bf16), lat):
+        events, total_us, _ = profile_device(lambda: predictor(big))
+        gather_us, names = gathers(events)
+        emit(phase="serve_din_dtype", dtype=dtype, rows=len(big["feedid"]),
+             median_ms=statistics.median(times), p90_ms=float(np.percentile(times, 90)),
+             device_us_total=total_us, gather_us=gather_us, gather_kernels=names,
+             top_device_us=top_device(events), card=card)
+
+
+def check_export(model: str, pred: Predictor) -> dict:
+    """``export_serving_artifact`` of ``pred`` on the card, then
+    ``load_serving_artifact``: the loaded program's heads must match the
+    Predictor's to ``EXPORT_TOL`` on a batch of ``EXPORT_BATCH`` rows.
+    Returns the kernel launches of the loaded program's call."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, f"{model}.pt2")
+        t0 = time.perf_counter()
+        export_serving_artifact(pred, path, batch_size=EXPORT_BATCH)
+        export_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        fn = load_serving_artifact(path)
+    data = make_synthetic_dataset(pred.schema, num_rows=EXPORT_BATCH, seed=SEED + 5)
+    request = {k: v for k, v in data.items() if k != "labels"}
+    zero_launches()
+    got = fn(request)
+    launches = kernel_launches()
+    want = pred(request)
+    check(sorted(got) == sorted(want), f"{model} artifact heads {sorted(got)}, want {sorted(want)}")
+    errs = {}
+    for head in want:
+        errs[head] = float(np.max(np.abs(got[head] - want[head])))
+        np.testing.assert_allclose(got[head], want[head], **EXPORT_TOL)
+    emit(phase="export_round_trip", model=model, batch=EXPORT_BATCH, max_abs_err=errs,
+         launches=launches, artifact_bytes=size, export_seconds=export_s)
+    return launches
+
+
+def din_schema(d: int, t: int):
+    """WECHAT_SCHEMA with the feedid table, the DIN attention's D, ``d``
+    wide and the history ``t`` long."""
+    cats = tuple(dataclasses.replace(f, emb_dim=d) if f.name == "feedid" else f
+                 for f in WECHAT_SCHEMA.categorical)
+    seqs = tuple(dataclasses.replace(f, emb_dim=d, max_len=t)
+                 if f.name == "his_read_comment_7d_seq" else f for f in WECHAT_SCHEMA.sequence)
+    return dataclasses.replace(WECHAT_SCHEMA, categorical=cats, sequence=seqs)
+
+
+def serve_c2_shapes(gen: torch.Generator, card: str) -> dict:
+    """Slice 6's path, at shapes the kernels once refused, served by
+    ``Predictor`` on the card (random seeded weights) against the same
+    weights with the plain versions, to 1e-5: DIN with a 12-wide feedid
+    table (B1's generic kernel), DIN over histories of 4096 (B1's
+    tensor-core kernel, 256 tiles a full row) and xDeepFM with CIN layers
+    (600, 128) (B2 at H = 300, F = 7). Returns the launches of the run."""
+    cases = (("din_D12", din_schema(12, 50), default_config("din")),
+             ("din_T4096", din_schema(16, 4096), default_config("din")),
+             ("xdeepfm_cin600", WECHAT_SCHEMA, default_config("xdeepfm", cin_layer_sizes=(600, 128))))
+    preds = {}
+    for name, schema, cfg in cases:
+        model = build_model(schema, cfg, device="cuda", generator=gen)
+        randomize_eval_state(model, gen)
+        state_dict = model.state_dict()
+        preds[name] = (Predictor(schema, cfg, state_dict=state_dict),
+                       Predictor(schema, cfg.replace(kernel_backend="jnp"), state_dict=state_dict),
+                       {k: v for k, v in make_synthetic_dataset(schema, num_rows=1000, seed=SEED + 6)
+                        .items() if k != "labels"})
+    zero_launches()
+    answers = {name: pred(request)["score"] for name, (pred, _, request) in preds.items()}
+    launches = kernel_launches()
+    for name, (_, plain, request) in preds.items():
+        got, want = answers[name], plain(request)["score"]
+        err = float(np.max(np.abs(got - want)))
+        emit(phase="serve_c2_shape", model=name, rows=1000, max_abs_err_vs_plain=err,
+             mean_score=float(got.mean()), card=card)
+        check(np.all(np.isfinite(got)) and np.all((got >= 0) & (got <= 1)), f"{name}: scores")
+        np.testing.assert_allclose(got, want, **TOL)
+    emit(phase="serve_c2_launches", launches=launches)
+    want = {"din_attention_fwd": 1, "din_attention_generic_fwd": 1, "cin_layer_fwd": 2}
+    check(launches == want, f"C2 serving launched {launches}, want {want}")
+    return launches
 
 
 def serve_against_cpu(model: str, cfg, model_dir: str, requests, atol: float, rtol: float,
@@ -740,6 +1039,9 @@ def train_and_serve_multitask(workdir: str, card: str) -> None:
             check(abs(float(w.sum()) - len(cfg.tasks)) < 1e-4, f"{run}: weights {w} sum != T")
             check(float((w - 1).abs().max()) > 1e-3, f"{run}: weights {w} did not move from 1")
         serve_against_cpu(model, cfg, model_dir, requests, 1e-5, 1e-5, card, run)
+        if run == "ple-sum":
+            launches = check_export("ple", Predictor(WECHAT_SCHEMA, cfg, model_dir=model_dir))
+            check(not any(launches.values()), f"the PLE artifact launched a kernel: {launches}")
 
 
 # -- phase 5 ------------------------------------------------------------------
@@ -773,7 +1075,126 @@ def time_kernels(gen: torch.Generator, card: str, mma_sync_tflops: float):
                 ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms, **least)
             emit(phase="time", kernel="cin_layer_fwd", B=b, layer=layer, ms=kernel_ms,
                  plain_ms_no_yardstick=plain_ms, library_ms=library_ms, **least, card=card)
+    # the shapes past the former limits, at B = 1024 (B1 with softmax)
+    for name, t, d, hidden in C2_DIN_SHAPES:
+        q, k, lengths, params = din_inputs(1024, gen, t=t, d=d, hidden=hidden)
+        kernel = din_kernels.kernel_for(d, *hidden)
+        kernel_ms, plain_ms = map(statistics.median, times_in_turns(
+            [lambda: din_kernels.din_attention_cuda(q, k, lengths, params, True),
+             lambda: din_kernels.din_attention_plain(q, k, lengths, params, True)],
+            lambda fn: device_ms(fn, flush), runs=10))
+        least = din_bound(lengths, t, d, *hidden, mma_sync_tflops)
+        timings[kernel, name] = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=None, **least)
+        emit(phase="time", kernel=kernel, c2_shape=name, B=1024, T=t, D=d, hidden=list(hidden),
+             ms=kernel_ms, plain_ms_no_yardstick=plain_ms, **least, card=card)
+    for name in C2_CIN_SHAPES:
+        xk_t, x0_t, w = cin_inputs(1024, name, gen)
+        kernel_ms, plain_ms, library_ms = map(statistics.median, times_in_turns(
+            [lambda: cin_kernels.cin_layer_cuda_t(xk_t, x0_t, w),
+             lambda: cin_kernels.cin_layer_plain_t(xk_t, x0_t, w),
+             lambda: torch.einsum("bdh,bdf,ohf->bdo", xk_t, x0_t, w)],
+            lambda fn: device_ms(fn, flush), runs=10))
+        least = cin_bound(xk_t, x0_t, w, mma_sync_tflops)
+        timings["cin_layer_fwd", name] = dict(ms=kernel_ms, plain_ms=plain_ms,
+                                              library_ms=library_ms, **least)
+        emit(phase="time", kernel="cin_layer_fwd", c2_shape=name, B=1024,
+             shape=[list(xk_t.shape), list(x0_t.shape), list(w.shape)], ms=kernel_ms,
+             plain_ms_no_yardstick=plain_ms, library_ms=library_ms, **least, card=card)
     return timings
+
+
+def host_overhead(gen: torch.Generator, card: str) -> None:
+    """Host time that slice 6 put on every call, at DIN's 1-row bucket
+    (B = 256), f32: B1's registered operator, the promoting ``Linear`` (in
+    inference mode, and with autograd recording as in a train step) and
+    BatchNorm's eval path, each against the route the port took before
+    slice 6 (``DINAttentionFn`` around the CUDA wrapper, ``nn.Linear``,
+    ``nn.BatchNorm1d``) and against the bare call (the wrapper,
+    ``F.linear``, ``F.batch_norm``). Each is the host clock of enqueueing
+    100 calls, no sync inside (so a short kernel's device time is not
+    counted), median of 10 runs in turns. Forward hooks count the calls
+    of each in one 1-row DIN request and one MMOE train forward
+    (B = 1024); with the differences to the earlier routes they give the
+    host time each path gained."""
+    from rank_tpu_torch.ops.activations import BatchNorm
+    from rank_tpu_torch.ops.mlp import Linear
+
+    q, k, lengths, params = din_inputs(256, gen)
+    x = torch.randn(256, 512, generator=gen).cuda()
+    linear = Linear(512, 256).cuda()
+    parent_linear = torch.nn.Linear(512, 256).cuda()
+    norm = BatchNorm(512).cuda().eval()
+    parent_norm = torch.nn.BatchNorm1d(512).cuda().eval()
+    f = torch.nn.functional
+    # (the call slice 6 makes, the one made before it, the bare one)
+    routes = {
+        "din_attention": (
+            lambda: din_kernels.din_attention(q, k, lengths, params, True),
+            lambda: din_kernels.DINAttentionFn.apply(din_kernels.din_attention_cuda, True,
+                                                     q, k, lengths, *params),
+            lambda: din_kernels.din_attention_cuda(q, k, lengths, params, True)),
+        "linear": (lambda: linear(x), lambda: parent_linear(x),
+                   lambda: f.linear(x, linear.weight, linear.bias)),
+        "batch_norm": (lambda: norm(x), lambda: parent_norm(x),
+                       lambda: f.batch_norm(x, norm.running_mean, norm.running_var, norm.weight,
+                                            norm.bias, False, 0.0, norm.eps)),
+    }
+
+    def enqueue_us(fn, calls: int = 100) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        us = (time.perf_counter() - t0) / calls * 1e6
+        torch.cuda.synchronize()
+        return us
+
+    per_call = {}
+    with torch.inference_mode():
+        for kind, fns in routes.items():
+            per_call[kind] = tuple(map(statistics.median, times_in_turns(fns, enqueue_us, runs=10)))
+    per_call["linear_train"] = tuple(map(statistics.median, times_in_turns(
+        routes["linear"], enqueue_us, runs=10)))
+
+    kinds = {Linear: "linear", BatchNorm: "batch_norm"}
+
+    def calls_of(model, run) -> dict:
+        counts = dict.fromkeys(kinds.values(), 0)
+
+        def counter(kind):
+            def hook(*_):
+                counts[kind] += 1
+            return hook
+
+        hooks = [m.register_forward_hook(counter(kinds[type(m)]))
+                 for m in model.modules() if type(m) in kinds]
+        before = din_kernels.din_attention_cuda.launches
+        run()
+        counts["din_attention"] = din_kernels.din_attention_cuda.launches - before
+        for hook in hooks:
+            hook.remove()
+        return counts
+
+    cfg = default_config("din")
+    pred = Predictor(WECHAT_SCHEMA, cfg, state_dict=build_model(
+        WECHAT_SCHEMA, cfg, device="cuda", generator=gen).state_dict())
+    request = make_synthetic_dataset(WECHAT_SCHEMA, num_rows=1, seed=SEED)
+    din_calls = calls_of(pred.model, lambda: pred({key: v for key, v in request.items()
+                                                   if key != "labels"}))
+    mmoe = build_model(WECHAT_SCHEMA, default_config("mmoe"), device="cuda", generator=gen)
+    batch = {key: torch.as_tensor(v).cuda()
+             for key, v in make_synthetic_dataset(WECHAT_SCHEMA, num_rows=1024, seed=SEED).items()}
+    mmoe_calls = calls_of(mmoe.train(), lambda: mmoe(batch))
+    mmoe_calls["linear_train"] = mmoe_calls.pop("linear")
+    for kind, (ours, parent, bare) in per_call.items():
+        emit(phase="host_overhead", call=kind, us=ours, parent_route_us=parent, bare_us=bare,
+             calls_per_din_request=din_calls.get(kind, 0),
+             calls_per_mmoe_train_forward=mmoe_calls.get(kind, 0), card=card)
+    for name, calls in (("din_request_1_row", din_calls), ("mmoe_train_forward", mmoe_calls)):
+        added = {base: sum(n * (per_call[kind][0] - per_call[kind][i])
+                           for kind, n in calls.items() if kind in per_call)
+                 for i, base in ((1, "vs_parent_route_us"), (2, "vs_bare_us"))}
+        emit(phase="host_overhead_added", path=name, **added, card=card)
 
 
 def profile_train_step(model: str, card: str, steps: int = 10, **overrides) -> None:
@@ -803,7 +1224,12 @@ def profile_train_step(model: str, card: str, steps: int = 10, **overrides) -> N
          top_device_us=top_device(events, 12), top_host_self_us=host_top, card=card)
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--kernels-only", action="store_true",
+                        help="phases 1-3 only (build and hold the kernels against their plain "
+                             "versions), without the result lines")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs on the GPU only",
               file=sys.stderr)
@@ -822,9 +1248,13 @@ def main() -> int:
 
     # 3. kernels against their plain versions
     gen = torch.Generator().manual_seed(SEED)
-    din_err = check_din_kernel(gen)
+    din_err, din_c2_err = check_din_kernel(gen)
     cin_err = check_cin_kernel(gen)
+    check_bf16_inputs(gen)
     check_gradients(gen)
+    if args.kernels_only:
+        emit(phase="kernels_only_done")
+        return 0
 
     # 4. main paths
     with tempfile.TemporaryDirectory() as workdir:
@@ -834,32 +1264,43 @@ def main() -> int:
         train_and_serve_zoo(workdir, card)
         train_and_serve_multitask(workdir, card)
     serve_din(gen, card)
+    c2_launches = serve_c2_shapes(gen, card)
 
     # 5. times on the card
     timings = time_kernels(gen, card, mma_sync_ceiling(card))
+    host_overhead(gen, card)
     profile_train_step("xdeepfm", card)
     profile_train_step("bst", card)
     profile_train_step("dien", card, steps=3)
     profile_train_step("mmoe", card)
     profile_train_step("mmoe", card, task_weighting="pcgrad")
 
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "bound_tc_ms", "library_ms")
     rows = []
     for name, timed, source, replaces, launches, err in (
-        ("din_attention_fwd", "din_attention_fwd",
+        ("din_attention_fwd", ("din_attention_fwd", 1024),
          "rank_tpu_torch/ops/kernels/csrc/din_attention.cu",
          "rank_tpu/ops/pallas/din_attention.py:156", din_launches, din_err),
-        ("cin_layer_fwd", "cin_layer_fwd/layer1", "rank_tpu_torch/ops/kernels/csrc/cin.cu",
+        # the generic B1 kernel, launched on slice 6's path (DIN at D = 12)
+        ("din_attention_generic_fwd", ("din_attention_generic_fwd", "D12"),
+         "rank_tpu_torch/ops/kernels/csrc/din_attention.cu",
+         "rank_tpu/ops/pallas/din_attention.py:156",
+         c2_launches["din_attention_generic_fwd"], din_c2_err["din_attention_generic_fwd"]),
+        ("cin_layer_fwd", ("cin_layer_fwd/layer1", 1024), "rank_tpu_torch/ops/kernels/csrc/cin.cu",
          "rank_tpu/ops/pallas/cin.py:140", cin_launches, cin_err),
     ):
         # B = 1024: the batch of the training path; B2 at its heavier layer.
         # library_ms: none for B1 (no single PyTorch call computes DIN
-        # attention); B2: one einsum.
-        t = timings[timed, 1024]
+        # attention); B2: one einsum. c2_shapes: the shapes past the former
+        # limits that the variant ran, at B = 1024.
+        kernel = name
+        c2 = [{"shape": shape, **{key: t[key] for key in keys}}
+              for (k, shape), t in timings.items() if k == kernel and isinstance(shape, str)]
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches, "max_abs_err": err,
-            **{key: t[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "bound_tc_ms",
-                                       "library_ms")},
+            "launches": launches, "max_abs_err": err, **{key: timings[timed][key] for key in keys},
+            "c2_max_abs_err": din_c2_err.get(name, cin_err if name == "cin_layer_fwd" else None),
+            "c2_shapes": c2,
         })
     emit(kernels=rows)
     print(card, flush=True)

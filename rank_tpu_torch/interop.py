@@ -27,7 +27,10 @@ leaf changes with the module's type:
     name, in the same layout.
 
 Every key must match: a missing flax entry, a wrong shape or a flax entry
-left over raises.
+left over raises. A bf16 leaf (the variables of a JAX Predictor built with
+``weights_dtype='bfloat16'``, ml_dtypes' ``bfloat16``, which
+``torch.from_numpy`` refuses) is carried over exactly, through f32, as a
+bf16 tensor; every other leaf takes the model's dtype.
 """
 
 from __future__ import annotations
@@ -87,7 +90,10 @@ def state_dict_from_flax(model: nn.Module, variables: Mapping) -> Dict[str, torc
             raise ValueError(
                 f"{'/'.join(path)} has shape {value.shape}; {key} needs {tuple(want.shape)}"
             )
-        out[key] = torch.tensor(value, dtype=want.dtype)
+        if value.dtype.name == "bfloat16":  # exact: f32 holds every bf16 value
+            out[key] = torch.from_numpy(value.astype(np.float32)).to(torch.bfloat16)
+        else:
+            out[key] = torch.tensor(value, dtype=want.dtype)
     if flat:
         raise KeyError(
             "flax variables with no counterpart in the model: "

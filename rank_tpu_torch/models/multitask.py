@@ -33,7 +33,7 @@ import torch
 from torch import nn
 
 from ..features import FeatureSchema
-from ..ops.mlp import MLPTower
+from ..ops.mlp import MLPTower, einsum
 from .base import TOWER_FIELDS, Batch, ModelConfig, RankModel
 
 
@@ -51,7 +51,7 @@ def _tower(fan_in: int, units, cfg: ModelConfig, generator) -> MLPTower:
 
 def _mix(gate: torch.Tensor, pool: torch.Tensor) -> torch.Tensor:
     """Softmax-gated sum of the experts: gate logits (B, E), pool (B, E, H)."""
-    return torch.einsum("be,beh->bh", torch.softmax(gate, dim=-1), pool)
+    return einsum("be,beh->bh", torch.softmax(gate, dim=-1), pool)
 
 
 class _MultiTaskModel(RankModel):

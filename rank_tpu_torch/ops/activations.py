@@ -14,6 +14,8 @@ and the BatchNorm they and the tower share.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
 
@@ -30,6 +32,10 @@ class BatchNorm(nn.BatchNorm1d):
     running statistics exactly as flax's eval mode does. The state-dict
     keys are torch's (``weight``, ``bias``, ``running_mean``,
     ``running_var``, ``num_batches_tracked``), so ``interop.py`` maps them.
+
+    Dtypes follow flax's ``_normalize``: under bf16 parameters (the bf16
+    serving ``Predictor``) the statistics stay f32, the arithmetic runs in
+    f32 and the output takes the dtype that x, scale and bias promote to.
     """
 
     def __init__(self, num_features: int, eps: float = 1e-5, decay: float = 0.99,
@@ -39,7 +45,12 @@ class BatchNorm(nn.BatchNorm1d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
-            return super().forward(x)
+            affine = (self.weight, self.bias) if self.affine else ()
+            out = functools.reduce(torch.promote_types, (p.dtype for p in affine), x.dtype)
+            y = torch.nn.functional.batch_norm(
+                *(_f32(t) for t in (x, self.running_mean, self.running_var, self.weight,
+                                    self.bias)), False, 0.0, self.eps)
+            return y if y.dtype == out else y.to(out)
         mean = x.mean(dim=0)
         var = torch.clamp_min((x * x).mean(dim=0) - mean * mean, 0.0)
         with torch.no_grad():
@@ -51,6 +62,12 @@ class BatchNorm(nn.BatchNorm1d):
             mul = mul * self.weight
         y = (x - mean) * mul
         return y + self.bias if self.affine else y
+
+
+def _f32(t):
+    """``t`` in f32; an f32 tensor or None as it is, without a call to
+    ``.float()``, which costs host time on every eval forward."""
+    return t if t is None or t.dtype == torch.float32 else t.float()
 
 
 def batch_norm_last(norm: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:

@@ -20,7 +20,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from .mlp import init_dense_, xavier_normal_
+from .mlp import einsum, init_dense_, matmul, xavier_normal_
 
 MASK_NEG = -(2.0**32) + 1.0  # reference padding value, din.py:74
 
@@ -69,12 +69,14 @@ class DINAttention(nn.Module):
     so the kernel reads them as the JAX kernel does.
 
     backend:
-      * ``'auto'``: the hand-written CUDA kernel on CUDA tensors, the plain
-        version on CPU tensors;
-      * ``'pallas'``: the kernel (the JAX package's name for its kernel
-        backend); raises on CPU tensors;
+      * ``'auto'``: the registered operator ``rank_tpu_torch::din_attention``:
+        a hand-written CUDA kernel on CUDA tensors, at every shape the JAX
+        module takes (``kernels/din_attention.py`` chooses the kernel by
+        shape), and the plain version on CPU tensors;
+      * ``'pallas'``: the same operator (the JAX package's name for its
+        kernel backend); raises on CPU tensors;
       * ``'jnp'``: the plain torch version, on any device.
-    Both kernel backends train through ``DINAttentionFn``, whose backward
+    Both kernel backends train through the operator's gradient, which
     recomputes through the plain version.
     """
 
@@ -133,5 +135,5 @@ class BilinearAttention(nn.Module):
         lengths: torch.Tensor,  # (B,)
     ) -> torch.Tensor:
         """(B, T) attention weights."""
-        scores = torch.einsum("btd,bd->bt", keys, query @ self.w)
+        scores = einsum("btd,bd->bt", keys, matmul(query, self.w))
         return masked_softmax(scores, length_mask(lengths, keys.shape[1]))

@@ -11,14 +11,15 @@ per-layer transpose is made. The contraction is the same as the JAX
 module's standard-layout one.
 
 backend:
-  * ``'auto'``: the hand-written CUDA kernel for every layer on CUDA
-    tensors (layer 0, with H = F, included), the plain version on CPU
-    tensors. The JAX package's per-layer size threshold
-    (``cin_layer_auto_t``) decides TPU dispatch and is not ported;
-  * ``'pallas'``: the kernel (the JAX package's name for its kernel
+  * ``'auto'``: the registered operator ``rank_tpu_torch::cin_layer_t``:
+    the hand-written CUDA kernel for every layer on CUDA tensors (layer 0,
+    with H = F, included; any H and F), the plain version on CPU tensors.
+    The JAX package's per-layer size threshold (``cin_layer_auto_t``)
+    decides TPU dispatch and is not ported;
+  * ``'pallas'``: the same operator (the JAX package's name for its kernel
     backend); raises on CPU tensors;
   * ``'jnp'``: the plain torch version, on any device.
-Both kernel backends train through ``CINLayerFn``, whose backward
+Both kernel backends train through the operator's gradient, which
 recomputes through the plain version.
 """
 

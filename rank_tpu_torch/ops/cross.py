@@ -16,7 +16,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from .mlp import dense_layer, xavier_normal_
+from .mlp import dense_layer, matmul, xavier_normal_
 
 
 class CrossNetwork(nn.Module):
@@ -60,7 +60,7 @@ class CrossNetwork(nn.Module):
             w, b = getattr(self, f"w_{l}"), getattr(self, f"b_{l}")
             if self.frozen_random:
                 w, b = w.detach(), b.detach()
-            x = x0 * (x @ w) + b + x
+            x = x0 * matmul(x, w) + b + x
         return x
 
 

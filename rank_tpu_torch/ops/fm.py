@@ -27,10 +27,13 @@ def pair_indices(num_fields: int) -> Tuple[np.ndarray, np.ndarray]:
 def pair_index_tensors(num_fields: int, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
     """``pair_indices`` as index tensors on ``device``, made once per
     (field count, device): a step then gathers without a host-to-device
-    copy. Nothing writes to them."""
+    copy. Nothing writes to them. They are made outside inference mode
+    even when a ``Predictor`` asks first, so that a later train step in the
+    same process may save them for backward."""
     i, j = pair_indices(num_fields)
-    return (torch.as_tensor(i, dtype=torch.long, device=device),
-            torch.as_tensor(j, dtype=torch.long, device=device))
+    with torch.inference_mode(False):
+        return (torch.as_tensor(i, dtype=torch.long, device=device),
+                torch.as_tensor(j, dtype=torch.long, device=device))
 
 
 def fm_first_order(weights: torch.Tensor) -> torch.Tensor:

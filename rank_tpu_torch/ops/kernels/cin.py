@@ -11,17 +11,26 @@ The kernel lives in ``csrc/cin.cu``; its header says what bounds it on an
 H100 and how its design answers that.
 
   * ``cin_layer_cuda_t``: launches the kernel; contiguous f32 CUDA tensors
-    only; raises on anything else. ``cin_layer_cuda_t.launches`` counts its
-    launches. It hands the kernel the weights as ``weight_operand`` lays
-    them out: the GEMM's B operand with K ordered (f, h) and H padded to 8.
+    only, any H, F, O >= 1; raises on anything else.
+    ``cin_layer_cuda_t.launches`` counts its launches. It hands the kernel
+    the weights as ``weight_operand`` lays them out: the GEMM's B operand
+    with K ordered (f, h) and H padded to 8.
   * ``cin_layer_plain_t``: the same function in plain torch ops (the JAX
-    ``_reference_t``), the oracle the kernel is held against.
-  * ``CINLayerFn``: the ``torch.autograd.Function`` around a forward
-    implementation. Its backward recomputes through the plain version, as
-    the JAX kernel's ``_bwd`` (``rank_tpu/ops/pallas/cin.py:149``) does:
-    there is no backward kernel.
-  * ``cin_layer_t``: the kernel, through ``CINLayerFn``, for CUDA tensors;
-    the plain version for CPU tensors.
+    ``_reference_t``, with jnp's dtype promotion), the oracle the kernel
+    is held against.
+  * ``torch.ops.rank_tpu_torch.cin_layer_t``: the registered operator. On
+    CUDA tensors it casts the inputs to f32, launches ``cin_layer_cuda_t``
+    and returns the result in the inputs' promoted dtype; on CPU tensors
+    it is the plain version. Its fake implementation lets ``torch.export``
+    trace it as one node, and its gradient recomputes through the plain
+    version, as the JAX kernel's ``_bwd`` (``rank_tpu/ops/pallas/cin.py:149``)
+    does: there is no backward kernel.
+  * ``CINLayerFn``: the same gradient as a ``torch.autograd.Function``
+    around any forward implementation (a CPU test runs it with the plain
+    forward, ``chip_smoke.py`` with ``cin_layer_cuda_t``).
+  * ``cin_layer_t``: the operator, on either device (``backend='auto'``);
+    ``cin_layer_cuda_fn_t`` the same, raising on CPU tensors
+    (``backend='pallas'``).
 """
 
 from __future__ import annotations
@@ -31,11 +40,7 @@ import ctypes
 import torch
 
 from . import _build
-
-# Widths the kernel's shared memory holds: 128 staged rows of H (padded)
-# and of F floats beside a 3-stage ring of B chunks.
-MAX_H = 256
-MAX_F = 64
+from ..mlp import cast_contiguous, einsum, promoted_dtype
 
 _lib = None
 
@@ -56,8 +61,8 @@ def library() -> ctypes.CDLL:
 def cin_layer_plain_t(xk_t: torch.Tensor, x0_t: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(B, D, H), (B, D, F), (O, H, F) -> (B, D, O); the JAX ``_reference_t``
     math, which builds the (B, H, F, D) pair tensor."""
-    z = torch.einsum("bdh,bdf->bhfd", xk_t, x0_t)
-    return torch.einsum("bhfd,ohf->bdo", z, w)
+    z = einsum("bdh,bdf->bhfd", xk_t, x0_t)
+    return einsum("bhfd,ohf->bdo", z, w)
 
 
 def padded_h(h: int) -> int:
@@ -77,9 +82,9 @@ def weight_operand(w: torch.Tensor) -> torch.Tensor:
     return wop.reshape(f * hp, op)
 
 
-def check_kernel_shapes(xk_t: torch.Tensor, x0_t: torch.Tensor, w: torch.Tensor) -> None:
+def check_shapes(xk_t: torch.Tensor, x0_t: torch.Tensor, w: torch.Tensor) -> None:
     """Raise unless the shapes make (B, D, H), (B, D, F), (O, H, F) with
-    H <= MAX_H and F <= MAX_F, the widths the kernel's shared memory holds."""
+    H, F, O >= 1."""
     for name, x in (("xk_t", xk_t), ("x0_t", x0_t), ("w", w)):
         if x.dim() != 3:
             raise ValueError(f"cin_layer_cuda_t: {name} has shape {tuple(x.shape)}, needs 3 dims")
@@ -90,17 +95,14 @@ def check_kernel_shapes(xk_t: torch.Tensor, x0_t: torch.Tensor, w: torch.Tensor)
             f"cin_layer_cuda_t: shapes xk_t {tuple(xk_t.shape)}, x0_t {tuple(x0_t.shape)}, "
             f"w {tuple(w.shape)} do not make (B, D, H), (B, D, F), (O, H, F)"
         )
-    if not (1 <= h <= MAX_H and 1 <= f <= MAX_F and o >= 1):
-        raise ValueError(
-            f"cin_layer_cuda_t: H={h}, F={f}, O={o}; the kernel takes 1 <= H <= {MAX_H}, "
-            f"1 <= F <= {MAX_F}, O >= 1"
-        )
+    if min(h, f, o) < 1:
+        raise ValueError(f"cin_layer_cuda_t: H={h}, F={f}, O={o}; each must be at least 1")
 
 
 def cin_layer_cuda_t(xk_t: torch.Tensor, x0_t: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA kernel; raises unless every input is a contiguous f32
     CUDA tensor on one device with shapes the kernel takes."""
-    check_kernel_shapes(xk_t, x0_t, w)
+    check_shapes(xk_t, x0_t, w)
     named = {"xk_t": xk_t, "x0_t": x0_t, "w": w}
     for name, x in named.items():
         if x.device.type != "cuda" or x.device != xk_t.device:
@@ -137,11 +139,17 @@ def cin_layer_cuda_t(xk_t: torch.Tensor, x0_t: torch.Tensor, w: torch.Tensor) ->
 cin_layer_cuda_t.launches = 0
 
 
+def cin_layer_vjp(xk_t, x0_t, w, grad_out):
+    """The gradients of xk_t, x0_t and w, recomputed through the plain
+    version (the JAX kernel's ``_bwd``)."""
+    _, pullback = torch.func.vjp(cin_layer_plain_t, xk_t, x0_t, w)
+    return pullback(grad_out)
+
+
 class CINLayerFn(torch.autograd.Function):
-    """``forward_fn`` in the forward pass (``cin_layer_cuda_t`` on the card);
-    the backward pass recomputes ``cin_layer_plain_t`` under autograd.
-    Taking ``forward_fn`` as an argument lets a CPU test run this backward
-    with the plain forward."""
+    """``forward_fn`` in the forward pass; the backward pass is
+    ``cin_layer_vjp``. Taking ``forward_fn`` as an argument lets a CPU
+    test run this backward with the plain forward."""
 
     @staticmethod
     def forward(ctx, forward_fn, xk_t, x0_t, w):
@@ -150,20 +158,51 @@ class CINLayerFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_out):
-        with torch.enable_grad():
-            inputs = [x.detach().requires_grad_() for x in ctx.saved_tensors]
-            grads = torch.autograd.grad(cin_layer_plain_t(*inputs), inputs, grad_out)
-        return (None, *grads)
+        return (None, *cin_layer_vjp(*ctx.saved_tensors, grad_out))
 
 
-def cin_layer_cuda_fn_t(xk_t: torch.Tensor, x0_t: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """The kernel with its gradient: ``cin_layer_cuda_t`` through ``CINLayerFn``."""
-    return CINLayerFn.apply(cin_layer_cuda_t, xk_t, x0_t, w)
+# -- the registered operator --------------------------------------------------------
+
+
+@torch.library.custom_op("rank_tpu_torch::cin_layer_t", mutates_args=(), device_types="cpu")
+def cin_layer_op(xk_t: torch.Tensor, x0_t: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """On the CPU: the plain version, in the inputs' promoted dtype."""
+    return cin_layer_plain_t(xk_t, x0_t, w)
+
+
+@cin_layer_op.register_kernel("cuda")
+def _cin_layer_on_card(xk_t, x0_t, w):
+    """On the card: the inputs cast to f32, the kernel, the result cast back
+    to the inputs' promoted dtype."""
+    out = cin_layer_cuda_t(*(cast_contiguous(x, torch.float32) for x in (xk_t, x0_t, w)))
+    return cast_contiguous(out, promoted_dtype(xk_t, x0_t, w))
+
+
+@cin_layer_op.register_fake
+def _(xk_t, x0_t, w):
+    return xk_t.new_empty((*xk_t.shape[:2], w.shape[0]), dtype=promoted_dtype(xk_t, x0_t, w))
+
+
+def _setup_context(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _backward(ctx, grad_out):
+    return cin_layer_vjp(*ctx.saved_tensors, grad_out)
+
+
+cin_layer_op.register_autograd(_backward, setup_context=_setup_context)
 
 
 def cin_layer_t(xk_t: torch.Tensor, x0_t: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """The kernel, with its gradient, for CUDA tensors; the plain version for
-    CPU tensors."""
-    if xk_t.device.type == "cpu":
-        return cin_layer_plain_t(xk_t, x0_t, w)
-    return cin_layer_cuda_fn_t(xk_t, x0_t, w)
+    """The registered operator: the kernel for CUDA tensors, the plain
+    version for CPU tensors, with its gradient on both."""
+    return cin_layer_op(xk_t, x0_t, w)
+
+
+def cin_layer_cuda_fn_t(xk_t: torch.Tensor, x0_t: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The operator, for CUDA tensors only: raises on CPU tensors rather
+    than running the plain version in the kernel's place."""
+    if xk_t.device.type != "cuda":
+        raise ValueError(f"the CIN kernel needs a CUDA device; xk_t is on {xk_t.device}")
+    return cin_layer_t(xk_t, x0_t, w)

@@ -59,12 +59,21 @@
 //     when that gives every SM a block, else 2 or 1: a small batch (the
 //     serving bucket B = 256 is 4,096 rows, 32 tiles of 128) takes
 //     shorter tiles rather than leaving most SMs idle;
-//   * the xk and x0 rows of the block are staged once with cp.async; B is
-//     walked in chunks of 32 rows through a 3-stage cp.async ring, so the
-//     copy of chunk c + 2 overlaps the products of chunk c, with one
-//     __syncthreads a chunk;
-//   * shared-memory strides Hp + 4 (xk rows) and 128 + 8 (B rows) make the
-//     fragment loads conflict-free; x0 rows have an odd stride. A warp's
+//   * the xk and x0 rows of the block are staged in panels of at most
+//     kHC = 64 columns of xk (padded H) and kFC = 16 of x0, so any H and F
+//     fit in shared memory. The k-steps run h-chunk by h-chunk, and inside
+//     an h-chunk in (f, h) order: each panel is a contiguous run of
+//     k-steps, and the product sums over K in any order. The first panel
+//     is staged with cp.async; a later one (only for H > 64 or F > 16; the
+//     default xDeepFM's layers are one panel each, and a one-panel shape
+//     runs a loop with no panel state) with plain loads between two
+//     __syncthreads. B is walked in chunks of 32 rows (4
+//     k-steps, the rows of weight_operand each k-step names) through a
+//     3-stage cp.async ring, so the copy of chunk c + 2 overlaps the
+//     products of chunk c, with one __syncthreads a chunk;
+//   * shared-memory strides min(Hp, 64) + 4 (xk rows) and 128 + 8 (B
+//     rows) make the fragment loads conflict-free; x0 rows have an odd
+//     stride. A warp's
 //     k-step reads 32 words a lane (16 of xk, 8 of x0, 8 of B) for 48
 //     tensor-core products, where the FMA kernel read 12 for 32 FMAs;
 //   * B's hi and lo parts are split as each fragment is loaded, A's as it
@@ -77,6 +86,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 namespace {
 
 constexpr int kTN = 128;      // outputs a block
@@ -84,6 +95,8 @@ constexpr int kKC = 32;       // K rows of B a pipeline stage
 constexpr int kStages = 3;
 constexpr int kThreads = 256;
 constexpr int kSB = kTN + 8;  // B stage row stride: conflict-free b fragments
+constexpr int kHC = 64;       // xk columns (of padded H) a panel stages
+constexpr int kFC = 16;       // x0 columns a panel stages
 
 // x = hi + lo. hi is x rounded to TF32 as cvt.rna.tf32.f32 rounds it (to
 // nearest, ties away from zero), in two integer operations: add half a TF32
@@ -136,64 +149,117 @@ __device__ __forceinline__ void store_pair(float* __restrict__ out, int M, int O
   }
 }
 
+// The order of the k-steps (8 consecutive h under one f): h-chunks of
+// HS k-steps (kHC columns) outer, then f, then h. Only the last h-chunk
+// may be short, so an iterator needs no division.
+struct KStep {
+  int f = 0, hs = 0, ph = 0, step = 0;  // f, h-step in the chunk, h-chunk
+  int width;                            // h-steps in this h-chunk
+  __device__ KStep(int HS, int NHS) : width(min(HS, NHS)) {}
+  __device__ int h0(int HS) const { return (ph * HS + hs) * 8; }
+  __device__ void next(int F, int HS, int NHS) {
+    ++step;
+    if (++hs < width) return;
+    hs = 0;
+    if (++f < F) return;
+    f = 0;
+    ++ph;
+    width = min(HS, NHS - ph * HS);
+  }
+};
+
 // MT m-tiles of 16 rows a warp: a block owns kTM = 32*MT rows (2 warps
-// down, 4 across) and kTN = 128 outputs.
-template <int MT>
+// down, 4 across) and kTN = 128 outputs. kPanels is false where the rows
+// fit one panel (Hp <= kHC and F <= kFC, both layers of the default
+// xDeepFM): the k-steps are then weight_operand's rows in order, and the
+// loop and the loader keep no panel state (on the H100 the panel walk
+// cost 2-19% at those shapes, chip_smoke.py timed against the one-panel
+// kernel in turns).
+template <int MT, bool kPanels>
 __global__ void __launch_bounds__(kThreads, 2)
 cin_layer_fwd_kernel(const float* __restrict__ xk, const float* __restrict__ x0,
                      const float* __restrict__ wop, float* __restrict__ out,
                      int M, int H, int F, int O, int Hp, int Op, int vec_xk) {
   constexpr int kTM = 32 * MT;
   extern __shared__ __align__(16) float smem[];
-  const int sx = Hp + 4, sf = F | 1;
+  const int NHS = Hp / 8, HS = min(Hp, kHC) / 8;  // h-steps a row, an h-chunk
+  const int sx = HS * 8 + 4, sf = min(F, kFC) | 1;
   float* bs = smem;                      // kStages x (kKC, kSB) chunks of B
-  float* xs = bs + kStages * kKC * kSB;  // (kTM, sx) xk rows, zero past H
-  float* x0s = xs + kTM * sx;            // (kTM, sf) x0 rows
+  float* xs = bs + kStages * kKC * kSB;  // (kTM, sx) xk panel, zero past H
+  float* x0s = xs + kTM * sx;            // (kTM, sf) x0 panel
 
-  const int K = F * Hp;
-  const int nchunks = (K + kKC - 1) / kKC;
+  const int S = F * NHS;  // k-steps
+  const int nchunks = (S + 3) / 4;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, tig = lane & 3;  // mma group and thread in group
   const int wm = warp >> 2, wn = warp & 3;  // warp's (16*MT)-row, 32-column tile
   const int m0 = blockIdx.x * kTM, n0 = blockIdx.y * kTN;
 
+  // Chunk c holds k-steps 4c..4c+3, row 8j + r of the chunk being row r
+  // of k-step 4c + j; this thread copies row `warp` of each, its columns
+  // 4*lane..4*lane+3. Chunks are loaded in order, so the loader keeps its
+  // own iterator over the k-steps.
+  KStep ld(HS, NHS);
   auto load_b = [&](int chunk) {
     float* dst = bs + (chunk % kStages) * (kKC * kSB);
-    const int k0 = chunk * kKC;
-    for (int i = tid; i < kKC * (kTN / 4); i += kThreads) {
-      const int kk = i / (kTN / 4), c = (i % (kTN / 4)) * 4;
-      const int k = k0 + kk, n = n0 + c;
-      const bool ok = k < K && n < Op;
-      cp_async16(dst + kk * kSB + c, ok ? wop + (size_t)k * Op + n : wop, ok);
+    const int n = n0 + lane * 4;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int step = chunk * 4 + j;
+      int row = step * 8 + warp;  // one panel: the rows in order
+      if constexpr (kPanels) {
+        row = ld.f * Hp + ld.h0(HS) + warp;
+        if (ld.step < S) ld.next(F, HS, NHS);
+      }
+      const bool ok = step < S && n < Op;
+      cp_async16(dst + (8 * j + warp) * kSB + lane * 4, ok ? wop + (size_t)row * Op + n : wop, ok);
     }
   };
 
-  // The block's rows; rows past M are zero-filled and never stored.
+  // A later panel, with plain loads: xk columns [h0, h0 + width) when the
+  // h-chunk changes, and x0 columns [f0, f0 + kFC) cut at F.
+  auto stage_xk = [&](int h0, int width) {
+    for (int i = tid; i < kTM * width; i += kThreads) {
+      const int r = i / width, c = i - r * width, h = h0 + c;
+      xs[r * sx + c] = m0 + r < M && h < H ? xk[(size_t)(m0 + r) * H + h] : 0.f;
+    }
+  };
+  auto stage_x0 = [&](int f0) {
+    const int width = min(kFC, F - f0);
+    for (int i = tid; i < kTM * width; i += kThreads) {
+      const int r = i / width, c = i - r * width;
+      x0s[r * sf + c] = m0 + r < M ? x0[(size_t)(m0 + r) * F + f0 + c] : 0.f;
+    }
+  };
+
+  // The first panel, with cp.async; rows past M are zero-filled and never
+  // stored.
+  const int hw = min(H, HS * 8), fw = min(F, kFC);
   if (vec_xk) {  // H % 4 == 0 and xk 16-byte aligned
-    const int hv = H / 4;
+    const int hv = hw / 4;
     for (int i = tid; i < kTM * hv; i += kThreads) {
       const int r = i / hv, c = (i - r * hv) * 4;
       const bool ok = m0 + r < M;
       cp_async16(xs + r * sx + c, ok ? xk + (size_t)(m0 + r) * H + c : xk, ok);
     }
   } else {
-    for (int i = tid; i < kTM * H; i += kThreads) {
-      const int r = i / H, c = i - r * H;
+    for (int i = tid; i < kTM * hw; i += kThreads) {
+      const int r = i / hw, c = i - r * hw;
       const bool ok = m0 + r < M;
       cp_async4(xs + r * sx + c, ok ? xk + (size_t)(m0 + r) * H + c : xk, ok);
     }
   }
-  for (int i = tid; i < kTM * (Hp - H); i += kThreads) {
-    const int r = i / (Hp - H), c = H + i - r * (Hp - H);
+  for (int i = tid; i < kTM * (HS * 8 - hw); i += kThreads) {
+    const int r = i / (HS * 8 - hw), c = hw + i - r * (HS * 8 - hw);
     xs[r * sx + c] = 0.f;  // meets B's zero rows; must be finite
   }
-  for (int i = tid; i < kTM * F; i += kThreads) {
-    const int r = i / F, c = i - r * F;
+  for (int i = tid; i < kTM * fw; i += kThreads) {
+    const int r = i / fw, c = i - r * fw;
     const bool ok = m0 + r < M;
     cp_async4(x0s + r * sf + c, ok ? x0 + (size_t)(m0 + r) * F + c : x0, ok);
   }
   load_b(0);
-  cp_async_commit();  // group 0: the rows and chunk 0
+  cp_async_commit();  // group 0: the first panel and chunk 0
   if (nchunks > 1) load_b(1);
   cp_async_commit();  // group 1: chunk 1 (maybe empty)
 
@@ -205,7 +271,8 @@ cin_layer_fwd_kernel(const float* __restrict__ xk, const float* __restrict__ x0,
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
 
-  int f = 0, h0 = 0;  // k = f*Hp + h0 of the next k-step: one f a k-step
+  KStep k(HS, NHS);  // the next k-step: f, h0 = k.h0(HS), under kPanels
+  int f = 0, h0 = 0;  // the same for one panel
   for (int c = 0; c < nchunks; ++c) {
     cp_async_wait<1>();  // this thread's copies of chunk c (and the rows) landed
     __syncthreads();     // everyone's did; the stage of chunk c - 1 is free
@@ -214,7 +281,22 @@ cin_layer_fwd_kernel(const float* __restrict__ xk, const float* __restrict__ x0,
     const float* b = bs + (c % kStages) * (kKC * kSB);
 #pragma unroll
     for (int s = 0; s < kKC / 8; ++s) {
-      if (f >= F) break;  // K ends inside the last chunk
+      int fl, hl;  // the k-step's columns of the panel
+      if constexpr (kPanels) {
+        if (k.step >= S) break;  // K ends inside the last chunk
+        if (k.step > 0 && k.hs == 0 && k.f % kFC == 0) {  // a new panel (uniform)
+          __syncthreads();  // every warp is done with the old one
+          if (k.f == 0) stage_xk(k.h0(HS), k.width * 8);
+          stage_x0(k.f);
+          __syncthreads();
+        }
+        fl = k.f % kFC;
+        hl = k.hs * 8;
+      } else {
+        if (f >= F) break;
+        fl = f;
+        hl = h0;
+      }
       uint32_t bh[4][2], bl[4][2];
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt) {
@@ -225,9 +307,9 @@ cin_layer_fwd_kernel(const float* __restrict__ xk, const float* __restrict__ x0,
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
         const int r = wm * 16 * MT + mt * 16 + g;
-        const float* xr0 = xs + r * sx + h0 + tig;
+        const float* xr0 = xs + r * sx + hl + tig;
         const float* xr1 = xr0 + 8 * sx;
-        const float f0 = x0s[r * sf + f], f1 = x0s[(r + 8) * sf + f];
+        const float f0 = x0s[r * sf + fl], f1 = x0s[(r + 8) * sf + fl];
         uint32_t ah[4], al[4];
         split_tf32(xr0[0] * f0, ah[0], al[0]);  // (row g,     k tig)
         split_tf32(xr1[0] * f1, ah[1], al[1]);  // (row g + 8, k tig)
@@ -245,10 +327,14 @@ cin_layer_fwd_kernel(const float* __restrict__ xk, const float* __restrict__ x0,
           for (int e = 0; e < 4; ++e) acc[mt][nt][e] += t[e];
         }
       }
-      h0 += 8;
-      if (h0 == Hp) {
-        h0 = 0;
-        ++f;
+      if constexpr (kPanels) {
+        k.next(F, HS, NHS);
+      } else {
+        h0 += 8;
+        if (h0 == Hp) {
+          h0 = 0;
+          ++f;
+        }
       }
     }
   }
@@ -271,8 +357,10 @@ cudaError_t launch(const float* xk, const float* x0, const float* wop, float* ou
                    int M, int H, int F, int O, int Hp, int Op, cudaStream_t stream) {
   constexpr int kTM = 32 * MT;
   const size_t smem = sizeof(float) *
-      ((size_t)kStages * kKC * kSB + (size_t)kTM * (Hp + 4) + (size_t)kTM * (F | 1));
-  auto kernel = cin_layer_fwd_kernel<MT>;
+      ((size_t)kStages * kKC * kSB + (size_t)kTM * (std::min(Hp, kHC) + 4) +
+       (size_t)kTM * (std::min(F, kFC) | 1));
+  const bool panels = Hp > kHC || F > kFC;
+  auto kernel = panels ? cin_layer_fwd_kernel<MT, true> : cin_layer_fwd_kernel<MT, false>;
   // Above 48 KB a block must opt in; above the card's limit this fails and
   // the launch is refused with the error returned here.
   cudaError_t err =
@@ -288,7 +376,8 @@ cudaError_t launch(const float* xk, const float* x0, const float* wop, float* ou
 
 // xk (M, H), x0 (M, F), wop (F*Hp, Op) with row f*Hp + h and zeros in the
 // padding, out (M, O); all f32, contiguous, on `device`; Hp = H rounded up
-// to 8, Op = O rounded up to 4. Launches on `stream`; returns a cudaError_t.
+// to 8, Op = O rounded up to 4; any H, F, O >= 1. Launches on `stream`;
+// returns a cudaError_t.
 extern "C" int cin_layer_fwd(const float* xk, const float* x0, const float* wop,
                              float* out, int M, int H, int F, int O, int device,
                              void* stream) {

@@ -31,7 +31,23 @@
 // misses that bar, while hi = tf32(x), lo = x - hi and lo*hi + hi*lo +
 // hi*hi, each k-step's sum added in f32, are as close as an f32 product.
 //
-// Design, against what held the earlier one-thread-a-timestep kernel back:
+// Two kernels, chosen by the wrapper (ops/kernels/din_attention.py) by
+// shape, each with its own launch count:
+//   * din_attention_fwd_kernel<D>, on the tensor cores, for D in {8, 16,
+//     32, 64} and hidden widths (64, 32), the widths DINAttention is built
+//     with (the main path's D = 16 among them), and any T;
+//   * din_attention_generic_kernel, f32 FMAs on the CUDA cores, for every
+//     other D >= 1 and hidden widths (H1, H2) >= 1, and any T. A block
+//     owns a row; its weights are read through L1/L2 rather than staged,
+//     so no width has to fit in shared memory with them.
+// Both stream a row's valid keys through shared memory in tiles of 16
+// timesteps (a 2-stage cp.async ring a warp in the first), so T is not
+// bounded by shared memory. Under use_softmax they keep an online max and
+// sum and rescale the pooled sum at each tile; the pooled sum is kept in
+// f64 across tiles, so that a long row's sum is not the error's source.
+//
+// Design of the tensor-core kernel, against what held the earlier
+// one-thread-a-timestep kernel back:
 //   * the scoring MLP runs on the tensor cores (mma.sync m16n8k8 TF32,
 //     three products a k-step): a warp owns one row at a time, its
 //     timesteps in m-tiles of 16, and runs only the ceil(len/16) tiles
@@ -54,7 +70,8 @@
 //     w1kp and w2 split into their TF32 hi and lo parts and stored in
 //     fragment order, so that a lane loads the four b registers of a
 //     k-step with one 16-byte load; R of the warps then loop over rows,
-//     each copying the valid keys of its row with cp.async. The grid is
+//     each copying the valid keys of its row with cp.async, the next
+//     16-step tile in flight while the current one is scored. The grid is
 //     at most the blocks the SMs hold at once, each looping over rows, so
 //     the fold (about 3k adds a block) is paid once a block and not once
 //     a row, and it costs no extra launch as a fold in torch would;
@@ -131,6 +148,34 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
                :: "r"(s), "l"(src) : "memory");
 }
 
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, off));
+  return x;
+}
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(kFull, x, off);
+  return x;
+}
+
+// One tile of the online softmax over the warp, lane t holding timestep
+// t of the tile (t < nv valid, raw score s). Returns the factor that
+// rescales what was pooled before this tile, and leaves lane t's weight
+// exp(s / sqrt(D) - m) in w. m starts at MASK_NEG / sqrt(D) when the row
+// has masked positions (they take part in the max, as in the reference,
+// with zero weight) and at -inf when it has none.
+__device__ __forceinline__ float softmax_tile(float s, int lane, int nv, float sqrt_d,
+                                              float& m, float& sum, float& w) {
+  const float z = lane < nv ? s / sqrt_d : -INFINITY;
+  const float m_new = fmaxf(m, warp_max(z));
+  const float scale = expf(m - m_new);  // 0 at the first tile of an unmasked row
+  w = lane < nv ? expf(z - m_new) : 0.f;
+  sum = sum * scale + warp_sum(w);
+  m = m_new;
+  return scale;
+}
+
 // Shared-memory layout, in 4-byte words. The b fragments of w1kp and w2 are
 // stored in the order the lanes read them: for k-step s, column n and lane
 // tig, four words {hi(k0), hi(k1), lo(k0), lo(k1)} with k0, k1 the two rows
@@ -139,12 +184,13 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
 // its four b registers with one 16-byte load and a warp reads 512
 // contiguous bytes. Key rows have the stride SK = D + 4: a fragments read
 // rows g of columns tig, banks 4*g + tig.
+constexpr int kTile = 16;  // timesteps a tile: one m-tile of the products
 template <int D>
 struct Layout {
   static constexpr int K1 = 2 * D, SK = D + 4;
   static constexpr int kWeights = 2 * K1 * kH1 + 2 * kH1 * kH2 + D * kH1 + kH1 + 2 * kH2;
-  // keys (Tp, SK), scores (Tp), q (D), q @ w1q + b1 (H1)
-  __host__ __device__ static int per_warp(int tp) { return tp * SK + tp + D + kH1; }
+  // keys (2 stages x kTile, SK), scores (kTile), q (D), q @ w1q + b1 (H1)
+  static constexpr int kPerWarp = 2 * kTile * SK + kTile + D + kH1;
 };
 
 template <int D>
@@ -200,11 +246,13 @@ din_attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ 
   const int lane = tid & 31, warp = tid >> 5;
   if (warp >= R) return;  // no __syncthreads follows
   const int g = lane >> 2, tig = lane & 3;
-  const int tp = (T + 15) / 16 * 16;
-  float* ks = warps + warp * L::per_warp(tp);  // (tp, SK) keys of the row
-  float* sc = ks + tp * SK;                    // (tp) scores, then exp
-  float* qs = sc + tp;                         // (D) query
-  float* qh = qs + D;                          // (H1) q @ w1q + b1
+  float* ks = warps + warp * L::kPerWarp;  // 2 stages of (kTile, SK) keys
+  float* sc = ks + 2 * kTile * SK;         // (kTile) scores, then weights
+  float* qs = sc + kTile;                  // (D) query
+  float* qh = qs + D;                      // (H1) q @ w1q + b1
+  // pool: lanes split over (timestep group, d)
+  constexpr int DL = D < 32 ? D : 32, TG = 32 / DL, DPL = D / DL;
+  const int dl = lane % DL, tg = lane / DL;
 
   for (int row = blockIdx.x * R + warp; row < B; row += gridDim.x * R) {
     const int len = min(max(lengths[row], 0), T);
@@ -214,13 +262,18 @@ din_attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ 
       continue;
     }
     __syncwarp();  // the previous row is done with ks, sc, qs and qh
-    // Only the valid keys are copied: rows len.. of a tile are stale, but
-    // rows of a product are independent and their scores are masked.
+    // Only the valid keys are copied: rows past len of the last tile are
+    // stale, but rows of a product are independent and are not read.
     const float* kg = keys + (size_t)row * T * D;
-    for (int i = lane; i < len * (D / 4); i += 32) {
-      const int t = i / (D / 4), c = (i % (D / 4)) * 4;
-      cp_async16(ks + t * SK + c, kg + t * D + c);
-    }
+    auto copy_tile = [&](int mt) {
+      float* dst = ks + (mt & 1) * kTile * SK;
+      const int t0 = mt * kTile, n = min(kTile, len - t0);
+      for (int i = lane; i < n * (D / 4); i += 32) {
+        const int t = i / (D / 4), c = (i % (D / 4)) * 4;
+        cp_async16(dst + t * SK + c, kg + (size_t)(t0 + t) * D + c);
+      }
+    };
+    copy_tile(0);
     asm volatile("cp.async.commit_group;\n" ::: "memory");
     for (int d = lane; d < D; d += 32) qs[d] = q[(size_t)row * D + d];
     __syncwarp();
@@ -230,12 +283,20 @@ din_attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ 
       for (int d = 0; d < D; ++d) a = fmaf(qs[d], w1qs[d * kH1 + j], a);
       qh[j] = a;
     }
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-    __syncwarp();
 
-    const int tiles = (len + 15) / 16;
+    float m = len < T ? kMaskNeg / sqrt_d : -INFINITY, sum = 0.f;
+    double acc[DPL];
+#pragma unroll
+    for (int j = 0; j < DPL; ++j) acc[j] = 0.0;
+    const int tiles = (len + kTile - 1) / kTile;
     for (int mt = 0; mt < tiles; ++mt) {
-      const float* k0 = ks + (mt * 16 + g) * SK;  // timestep rows g and g + 8
+      if (mt + 1 < tiles) copy_tile(mt + 1);
+      asm volatile("cp.async.commit_group;\n" ::: "memory");  // one group a tile
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // tile mt landed
+      __syncwarp();
+      const float* kt = ks + (mt & 1) * kTile * SK;
+      const int nv = min(kTile, len - mt * kTile);
+      const float* k0 = kt + g * SK;  // timestep rows g and g + 8
       const float* k1 = k0 + 8 * SK;
       // layer 1: (16 x 2D) [k | q*k] @ w1kp, 8 tiles of 8 outputs
       float h1[8][4];
@@ -302,50 +363,40 @@ din_attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ 
       s1 += __shfl_xor_sync(kFull, s1, 1);
       s1 += __shfl_xor_sync(kFull, s1, 2);
       if (tig == 0) {
-        sc[mt * 16 + g] = s0 + bias3;
-        sc[mt * 16 + g + 8] = s1 + bias3;
+        sc[g] = s0 + bias3;
+        sc[g + 8] = s1 + bias3;
       }
-    }
-    __syncwarp();
-
-    // weights: masked positions are MASK_NEG / sqrt(D) and take part in
-    // the max; their exp is multiplied by 0, so they are left out of the sum
-    float denom = 1.f;
-    if (use_softmax) {
-      float m = len < T ? kMaskNeg / sqrt_d : -INFINITY;
-      for (int t = lane; t < len; t += 32) m = fmaxf(m, sc[t] / sqrt_d);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(kFull, m, off));
-      float sum = 0.f;
-      for (int t = lane; t < len; t += 32) {
-        const float e = expf(sc[t] / sqrt_d - m);
-        sc[t] = e;
-        sum += e;
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(kFull, sum, off);
-      denom = fmaxf(sum, 1e-12f);
       __syncwarp();
-    }
 
-    // pool: lanes split over (timestep group, d)
-    constexpr int DL = D < 32 ? D : 32, TG = 32 / DL, DPL = D / DL;
-    const int dl = lane % DL, tg = lane / DL;
-    float acc[DPL];
+      // weights: the raw scores, or the online softmax's exp
+      float scale = 1.f;
+      if (use_softmax) {
+        float w;
+        scale = softmax_tile(lane < kTile ? sc[lane] : 0.f, lane, nv, sqrt_d, m, sum, w);
+        __syncwarp();
+        if (lane < nv) sc[lane] = w;
+        __syncwarp();
+      }
+      float p[DPL];
 #pragma unroll
-    for (int j = 0; j < DPL; ++j) acc[j] = 0.f;
-    for (int t = tg; t < len; t += TG) {
-      const float w = use_softmax ? sc[t] / denom : sc[t];
+      for (int j = 0; j < DPL; ++j) p[j] = 0.f;
+      for (int t = tg; t < nv; t += TG) {
+        const float w = sc[t];
 #pragma unroll
-      for (int j = 0; j < DPL; ++j) acc[j] = fmaf(w, ks[t * SK + dl + j * DL], acc[j]);
+        for (int j = 0; j < DPL; ++j) p[j] = fmaf(w, kt[t * SK + dl + j * DL], p[j]);
+      }
+#pragma unroll
+      for (int j = 0; j < DPL; ++j) acc[j] = acc[j] * scale + p[j];
+      __syncwarp();  // done with this stage and sc before they are refilled
     }
 #pragma unroll
     for (int off = DL; off < 32; off <<= 1)
 #pragma unroll
       for (int j = 0; j < DPL; ++j) acc[j] += __shfl_xor_sync(kFull, acc[j], off);
+    const double denom = use_softmax ? fmaxf(sum, 1e-12f) : 1.0;
     if (tg == 0) {
 #pragma unroll
-      for (int j = 0; j < DPL; ++j) orow[dl + j * DL] = acc[j];
+      for (int j = 0; j < DPL; ++j) orow[dl + j * DL] = (float)(acc[j] / denom);
     }
   }
 }
@@ -363,10 +414,8 @@ cudaError_t launch(const float* q, const float* keys, const int* lengths,
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
-  const int tp = (T + 15) / 16 * 16;
-  const size_t per_warp = sizeof(float) * L::per_warp(tp);
+  const size_t per_warp = sizeof(float) * L::kPerWarp;
   const size_t weights = sizeof(float) * L::kWeights;
-  if (weights + per_warp > (size_t)optin) return cudaErrorInvalidValue;  // T too long
   int R = kWarps;
   while (R > 1 && weights + R * per_warp > (size_t)optin) --R;
   // small B: fewer rows a block, so that every SM gets a block
@@ -386,12 +435,148 @@ cudaError_t launch(const float* q, const float* keys, const int* lengths,
   return cudaGetLastError();
 }
 
+// The generic kernel: a block of kGenWarps warps owns a row at a time.
+// Per tile of up to kTile valid timesteps: the keys are staged; layer 1
+// ([k | q*k] @ w1kp, the same fold as above, plus q @ w1q + b1 once a
+// row) has a thread own an output column for every timestep of the tile,
+// reading each weight once a tile; layer 2 and the score have a thread
+// own a column of h2 and add its share of each score, summed over the
+// block; warp 0 runs the online softmax; the pool has a thread own a
+// column d. Weights are read through L1/L2 (__ldg), not staged.
+constexpr int kGenWarps = 4, kGenThreads = kGenWarps * 32;
+
+__global__ void __launch_bounds__(kGenThreads)
+din_attention_generic_kernel(const float* __restrict__ q, const float* __restrict__ keys,
+                             const int* __restrict__ lengths, const float* __restrict__ w1,
+                             const float* __restrict__ b1,
+                             const float* __restrict__ w2, const float* __restrict__ b2,
+                             const float* __restrict__ w3, const float* __restrict__ b3,
+                             float* __restrict__ out, int B, int T, int D, int H1, int H2,
+                             int tt, int use_softmax) {
+  extern __shared__ __align__(16) float smem[];
+  double* acc = reinterpret_cast<double*>(smem);  // (D) pooled sum
+  float* ks = reinterpret_cast<float*>(acc + D);  // (tt, D) keys of the tile
+  float* h1s = ks + tt * D;                       // (tt, H1) layer 1
+  float* qs = h1s + tt * H1;                      // (D) query
+  float* qh = qs + D;                             // (H1) q @ w1q + b1
+  float* part = qh + H1;                          // (warps, kTile) score shares
+  float* wt = part + kGenWarps * kTile;           // (kTile) weights of the tile
+  float* stat = wt + kTile;                       // rescale factor, softmax sum
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const float sqrt_d = sqrtf((float)D);
+  const float bias3 = __ldg(b3);
+
+  for (int row = blockIdx.x; row < B; row += gridDim.x) {
+    const int len = min(max(lengths[row], 0), T);
+    float* orow = out + (size_t)row * D;
+    if (len == 0) {  // every weight is zero in both modes
+      for (int d = tid; d < D; d += kGenThreads) orow[d] = 0.f;
+      continue;
+    }
+    __syncthreads();  // the previous row is done with the buffers
+    for (int d = tid; d < D; d += kGenThreads) {
+      qs[d] = q[(size_t)row * D + d];
+      acc[d] = 0.0;
+    }
+    __syncthreads();
+    for (int j = tid; j < H1; j += kGenThreads) {
+      float a = __ldg(b1 + j);
+      for (int d = 0; d < D; ++d)
+        a = fmaf(qs[d], __ldg(w1 + (size_t)d * H1 + j) + __ldg(w1 + (size_t)(2 * D + d) * H1 + j), a);
+      qh[j] = a;
+    }
+    float m = len < T ? kMaskNeg / sqrt_d : -INFINITY, sum = 0.f;  // warp 0's
+    const float* kg = keys + (size_t)row * T * D;
+    for (int t0 = 0; t0 < len; t0 += tt) {
+      const int nv = min(tt, len - t0);
+      __syncthreads();  // the previous tile is done with ks, h1s and wt
+      for (int i = tid; i < tt * D; i += kGenThreads)
+        ks[i] = i < nv * D ? kg[(size_t)t0 * D + i] : 0.f;
+      __syncthreads();
+      for (int j = tid; j < H1; j += kGenThreads) {
+        float a[kTile];
+#pragma unroll
+        for (int t = 0; t < kTile; ++t) a[t] = 0.f;
+        for (int d = 0; d < D; ++d) {
+          const float wk = __ldg(w1 + (size_t)(D + d) * H1 + j) - __ldg(w1 + (size_t)(2 * D + d) * H1 + j);
+          const float wq = __ldg(w1 + (size_t)(3 * D + d) * H1 + j), qd = qs[d];
+#pragma unroll
+          for (int t = 0; t < kTile; ++t) {
+            if (t < tt) {
+              const float k = ks[t * D + d];
+              a[t] = fmaf(qd * k, wq, fmaf(k, wk, a[t]));
+            }
+          }
+        }
+        const float base = qh[j];
+#pragma unroll
+        for (int t = 0; t < kTile; ++t)
+          if (t < tt) h1s[t * H1 + j] = fmaxf(a[t] + base, 0.f);
+      }
+      __syncthreads();
+      float s[kTile];
+#pragma unroll
+      for (int t = 0; t < kTile; ++t) s[t] = 0.f;
+      for (int n = tid; n < H2; n += kGenThreads) {
+        float a[kTile];
+#pragma unroll
+        for (int t = 0; t < kTile; ++t) a[t] = 0.f;
+        for (int j = 0; j < H1; ++j) {
+          const float w = __ldg(w2 + (size_t)j * H2 + n);
+#pragma unroll
+          for (int t = 0; t < kTile; ++t)
+            if (t < tt) a[t] = fmaf(h1s[t * H1 + j], w, a[t]);
+        }
+        const float bn = __ldg(b2 + n), wn = __ldg(w3 + n);
+#pragma unroll
+        for (int t = 0; t < kTile; ++t) s[t] = fmaf(fmaxf(a[t] + bn, 0.f), wn, s[t]);
+      }
+#pragma unroll
+      for (int t = 0; t < kTile; ++t) {
+        const float v = warp_sum(s[t]);
+        if (lane == 0) part[warp * kTile + t] = v;
+      }
+      __syncthreads();
+      if (warp == 0) {
+        float score = 0.f;
+        if (lane < nv) {
+          for (int w = 0; w < kGenWarps; ++w) score += part[w * kTile + lane];
+          score += bias3;
+        }
+        float w = lane < nv ? score : 0.f, scale = 1.f;
+        if (use_softmax) scale = softmax_tile(score, lane, nv, sqrt_d, m, sum, w);
+        if (lane < kTile) wt[lane] = w;
+        if (lane == 0) stat[0] = scale;
+      }
+      __syncthreads();
+      const double scale = stat[0];
+      for (int d = tid; d < D; d += kGenThreads) {
+        float p = 0.f;
+        for (int t = 0; t < nv; ++t) p = fmaf(wt[t], ks[t * D + d], p);
+        acc[d] = acc[d] * scale + p;
+      }
+    }
+    if (tid == 0) stat[1] = sum;
+    __syncthreads();
+    const double denom = use_softmax ? fmaxf(stat[1], 1e-12f) : 1.0;
+    for (int d = tid; d < D; d += kGenThreads) orow[d] = (float)(acc[d] / denom);
+  }
+}
+
+// Shared memory of the generic kernel at tt timesteps a tile, in bytes.
+size_t generic_smem(int D, int H1, int tt) {
+  return sizeof(double) * D +
+         sizeof(float) * ((size_t)tt * (D + H1) + D + H1 + kGenWarps * kTile + kTile + 2);
+}
+
 }  // namespace
 
-// q (B, D), keys (B, T, D) 16-byte aligned, lengths (B,) int32, w1 (4D, H1),
-// b1 (H1), w2 (H1, H2), b2 (H2), w3 (H2), b3 (1), out (B, D); f32 unless
-// said, contiguous, on `device`. D in {8, 16, 32, 64}, H1 = 64, H2 = 32.
-// Launches on `stream`; returns a cudaError_t.
+// q (B, D), keys (B, T, D), lengths (B,) int32, w1 (4D, H1), b1 (H1),
+// w2 (H1, H2), b2 (H2), w3 (H2), b3 (1), out (B, D); f32 unless said,
+// contiguous, on `device`. Launches on `stream`; returns a cudaError_t.
+//
+// din_attention_fwd: the tensor-core kernel; keys 16-byte aligned, D in
+// {8, 16, 32, 64}, H1 = 64, H2 = 32, any T >= 0.
 extern "C" int din_attention_fwd(const float* q, const float* keys,
                                  const int* lengths, const float* w1,
                                  const float* b1, const float* w2,
@@ -418,6 +603,41 @@ extern "C" int din_attention_fwd(const float* q, const float* keys,
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// din_attention_generic_fwd: the CUDA-core kernel; any D, H1, H2 >= 1 and
+// T >= 0. A tile holds up to 16 timesteps, fewer where (D + H1) is so
+// wide that 16 do not fit in shared memory; it refuses (D + H1) too wide
+// for even one (about 19,000 floats on an H100).
+extern "C" int din_attention_generic_fwd(const float* q, const float* keys,
+                                         const int* lengths, const float* w1,
+                                         const float* b1, const float* w2,
+                                         const float* b2, const float* w3,
+                                         const float* b3, float* out, int B, int T,
+                                         int D, int H1, int H2, int use_softmax,
+                                         int device, void* stream) {
+  if (B < 1 || T < 0 || D < 1 || H1 < 1 || H2 < 1) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  int optin = 0, sms = 0;
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
+  int tt = kTile;
+  while (tt > 1 && generic_smem(D, H1, tt) > (size_t)optin) --tt;
+  const size_t smem = generic_smem(D, H1, tt);
+  if (smem > (size_t)optin) return (int)cudaErrorInvalidValue;
+  auto kernel = din_attention_generic_kernel;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kGenThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = std::min(B, std::max(1, per_sm) * sms);
+  kernel<<<grid, kGenThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      q, keys, lengths, w1, b1, w2, b2, w3, b3, out, B, T, D, H1, H2, tt, use_softmax);
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* din_attention_error_string(int code) {

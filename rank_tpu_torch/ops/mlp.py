@@ -13,10 +13,21 @@ and flax's decay 0.99, and trains as flax's does.
 
 The initialisers of flax's ``nn.initializers`` that the zoo's raw
 parameters use live here too, with flax's fan rule.
+
+Dtype promotion. flax's ``nn.Dense`` and ``nn.BatchNorm`` with ``dtype=None``
+and jnp's ``@``/``einsum`` compute in the dtype their operands promote to,
+so bf16 weights times f32 activations give an f32 product (the bf16
+serving ``Predictor``). torch's ``F.linear``, ``@``, ``einsum`` and
+``F.batch_norm`` raise on mixed dtypes instead. ``promote`` casts the
+operands to ``torch.promote_types`` of them; ``matmul``, ``einsum`` and
+``Linear`` apply it at each product that flax promotes. ``linear_in`` is
+the other rule: flax's explicit ``dtype=`` (the BST and AutoInt blocks),
+which casts the weights to the activations' dtype.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable, List, Optional, Sequence, Tuple
 
@@ -95,6 +106,48 @@ def lecun_normal_(w: torch.Tensor, fan_in: int, generator: Optional[torch.Genera
     return truncated_normal_(w, 1.0 / fan_in, generator)
 
 
+def promoted_dtype(*tensors: torch.Tensor) -> torch.dtype:
+    """The dtype the operands promote to: bf16 with f32 gives f32."""
+    return functools.reduce(torch.promote_types, (t.dtype for t in tensors))
+
+
+def promote(*tensors: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The operands cast to ``promoted_dtype`` of them (flax's
+    ``promote_dtype``); like dtypes are left as they are, without a call
+    to ``.to``, which costs host time on every product."""
+    dtype = promoted_dtype(*tensors)
+    return tuple(t if t.dtype == dtype else t.to(dtype) for t in tensors)
+
+
+def cast_contiguous(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t`` as a contiguous ``dtype`` tensor; ``t`` itself, without a call
+    to ``.to`` or ``.contiguous``, where it already is one (the kernels'
+    operators take this on every launch)."""
+    if t.dtype == dtype and t.is_contiguous():
+        return t
+    return t.to(dtype).contiguous()
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in the promoted dtype, as jnp's ``@``."""
+    return torch.matmul(*promote(a, b))
+
+
+def einsum(equation: str, *operands: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` in the promoted dtype, as ``jnp.einsum``."""
+    return torch.einsum(equation, *promote(*operands))
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` that computes in the promoted dtype of its input and
+    parameters, as flax's ``nn.Dense`` with ``dtype=None``."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.bias is None:
+            return torch.nn.functional.linear(*promote(x, self.weight))
+        return torch.nn.functional.linear(*promote(x, self.weight, self.bias))
+
+
 def dense_layer(
     fan_in: int,
     features: int,
@@ -102,10 +155,10 @@ def dense_layer(
     generator: Optional[torch.Generator] = None,
     bias: bool = True,
 ) -> nn.Linear:
-    """``nn.Linear`` initialised as the JAX package's ``nn.Dense`` under
+    """``Linear`` initialised as the JAX package's ``nn.Dense`` under
     ``dense_init``, drawing only from ``generator``; ``bias=False`` is
     flax's ``use_bias=False``."""
-    layer = nn.Linear(fan_in, features, bias=bias, device="meta").to_empty(device="cpu")
+    layer = Linear(fan_in, features, bias=bias, device="meta").to_empty(device="cpu")
     init_dense_(layer.weight, layer.bias, fan_in, dense_init, generator)
     return layer
 

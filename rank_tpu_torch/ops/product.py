@@ -15,7 +15,7 @@ import torch
 from torch import nn
 
 from .fm import pairwise_dot
-from .mlp import xavier_uniform_
+from .mlp import einsum, xavier_uniform_
 
 
 class InnerProductLayer(nn.Module):
@@ -35,4 +35,4 @@ class OuterProductLayer(nn.Module):
     def forward(self, emb: torch.Tensor) -> torch.Tensor:
         """(B, F, D) -> (B, num_outputs)."""
         s = emb.sum(dim=1)  # (B, D) sum pooling, paper eq. (9)
-        return torch.einsum("bd,kde,be->bk", s, self.w, s)
+        return einsum("bd,kde,be->bk", s, self.w, s)

@@ -20,7 +20,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from .mlp import xavier_uniform_
+from .mlp import promote, xavier_uniform_
 
 MODES = ("gru", "agru", "augru")
 
@@ -59,11 +59,11 @@ class AttentionalGRU(nn.Module):
         outs = []
         for step in range(t):
             x = inputs[:, step]
-            gates = torch.sigmoid(torch.addmm(self.gates_bias, torch.cat([x, h], -1),
-                                              self.gates_kernel))
+            gates = torch.sigmoid(torch.addmm(*promote(self.gates_bias, torch.cat([x, h], -1),
+                                                       self.gates_kernel)))
             u, r = gates.split(self.hidden_dim, dim=-1)
-            c = torch.tanh(torch.addmm(self.candidate_bias, torch.cat([x, r * h], -1),
-                                       self.candidate_kernel))
+            c = torch.tanh(torch.addmm(*promote(self.candidate_bias, torch.cat([x, r * h], -1),
+                                                self.candidate_kernel)))
             if self.mode == "agru":
                 u = att_scores[:, step, None]
             elif self.mode == "augru":

@@ -18,7 +18,7 @@ import torch
 from torch import nn
 
 from .fm import pair_index_tensors, pair_indices
-from .mlp import dense_layer, xavier_uniform_
+from .mlp import dense_layer, einsum, matmul, xavier_uniform_
 
 
 class SENETLayer(nn.Module):
@@ -50,10 +50,10 @@ class BilinearInteraction(nn.Module):
         """emb: (B, F, D) -> (B, P, D) pair interactions."""
         i, j = pair_index_tensors(emb.shape[1], emb.device)
         if self.bilinear_type == "all":
-            left = emb @ self.w
+            left = matmul(emb, self.w)
             return left[:, i, :] * emb[:, j, :]
         if self.bilinear_type == "each":
-            left = torch.einsum("bfd,fde->bfe", emb, self.w)
+            left = einsum("bfd,fde->bfe", emb, self.w)
             return left[:, i, :] * emb[:, j, :]
-        left = torch.einsum("bpd,pde->bpe", emb[:, i, :], self.w)
+        left = einsum("bpd,pde->bpe", emb[:, i, :], self.w)
         return left * emb[:, j, :]

@@ -11,7 +11,8 @@ As the JAX block, and the reference's class variant (``bst.py:42-91``):
   * ``norm1`` takes ``queries + out``, where ``queries`` already holds the
     positions (not the textbook ``x + out``), then a d -> d LeakyReLU FFN,
     a residual and ``norm2``. Both LayerNorms use flax's epsilon, 1e-6
-    (torch's default is 1e-5), and run in f32.
+    (torch's default is 1e-5), and run in f32 (flax's ``dtype=float32``:
+    bf16 scales and biases are cast up at the call).
 
 Precision: parameters are f32 and cast to ``compute_dtype`` at the call
 (flax's ``dtype=``). With ``score_dtype`` bfloat16 and a bf16 compute
@@ -38,6 +39,12 @@ from .autoint import DTYPES
 from .mlp import dense_layer, linear_in
 
 ATTN_IMPLS = ("vpu", "vpu2", "einsum")
+
+
+def layer_norm_f32(norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+    """``norm`` in f32, its parameters cast to f32 at the call."""
+    return F.layer_norm(x.float(), norm.normalized_shape, norm.weight.float(),
+                        norm.bias.float(), norm.eps)
 
 
 class BSTTransformerBlock(nn.Module):
@@ -90,7 +97,7 @@ class BSTTransformerBlock(nn.Module):
         context = (weights @ v).transpose(1, 2).reshape(b, t, d)
 
         out = self.dropout(linear_in(self.w_o, context))
-        h1 = self.norm1((queries + out).float()).to(cdt)
+        h1 = layer_norm_f32(self.norm1, queries + out).to(cdt)
         ffn = self.dropout(F.leaky_relu(linear_in(self.ffn_1, h1), 0.01))
         ffn = self.dropout(linear_in(self.ffn_2, ffn))
-        return self.norm2((h1 + ffn).float())
+        return layer_norm_f32(self.norm2, h1 + ffn)

@@ -22,3 +22,9 @@ os.environ["JAX_PLATFORMS"] = "cpu"
 import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "slow: full-width or multi-seed cases, left out of tier-1 (-m 'not slow')"
+    )

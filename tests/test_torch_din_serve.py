@@ -237,7 +237,8 @@ def test_port_imports_nothing_of_jax():
         "rank_tpu_torch.ops.senet, rank_tpu_torch.ops.autoint, rank_tpu_torch.ops.transformer, "
         "rank_tpu_torch.ops.rnn, rank_tpu_torch.models.fm_family, "
         "rank_tpu_torch.models.cross_family, rank_tpu_torch.models.sequence, "
-        "rank_tpu_torch.models.multitask, rank_tpu_torch.train.mtl; "
+        "rank_tpu_torch.models.multitask, rank_tpu_torch.train.mtl, rank_tpu_torch.serve, "
+        "rank_tpu_torch.ops.kernels; "
         "new = {m.split('.')[0] for m in set(sys.modules) - before}; "
         "assert not new & {'jax', 'flax', 'rank_tpu'}, new"
     )
