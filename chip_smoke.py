@@ -83,6 +83,22 @@ Phases; any failure raises and the script exits non-zero:
         DIN over histories of 4096 and xDeepFM with CIN layers (600, 128),
         random seeded weights, 1000 rows, each against the plain versions
         to 1e-5; each kernel variant must launch;
+     g. training from files (slice 7): the port's producers write the
+        calibrated log at scale 0.05 (166,115 train and 30,452 eval rows)
+        and run the WeChat ETL over it (``arrays/*.npz``,
+        ``dataframe/*.parquet``, ``vocabulary/``; host seconds printed,
+        with ``native`` saying whether the host library loaded); the
+        parquet frames must encode to the npz arrays; ``cli.main`` trains
+        xDeepFM and DIN from the npz files (2 epochs each) and xDeepFM
+        from the parquet files (1 epoch) at the defaults and the
+        vocabulary-sized schema: B2 must launch once a layer and B1 once
+        a step, train and eval, DIN's attention weights must move, eval
+        AUC must pass 0.6 (printed beside rank_tpu's calibrated record,
+        no parity test). Each ``model_dir`` is served on the card against
+        the CPU to 1e-5 at 1000 eval rows. Then B1 against its plain
+        version, to 1e-5, on a 1024-row batch of the eval file (the
+        trained model's query, keys and weights, the file's skewed history
+        lengths, whose shares are printed);
   5. times on the card: each kernel, its plain version (no yardstick of
      speed: it repeats the kernel's arithmetic in unfused torch ops), the
      one PyTorch call that computes the same function where there is one
@@ -95,6 +111,7 @@ Phases; any failure raises and the script exits non-zero:
      kernel and plain in turns; the host time a call of B1's registered
      operator, the promoting ``Linear`` and BatchNorm's eval path adds
      over a direct call, and what that adds to a 1-row DIN request;
+     B1 on the file batch against the same inputs with uniform lengths;
      and profiler traces of xDeepFM, BST, DIEN,
      MMOE and MMOE under PCGrad train steps (B = 1024): step time, the top
      device operations, launches a step and the device-busy share.
@@ -125,8 +142,10 @@ import torch
 
 from rank_tpu_torch import (WECHAT_SCHEMA, Predictor, build_model, default_config,
                             export_serving_artifact, load_serving_artifact)
-from rank_tpu_torch import cli
+from rank_tpu_torch import cli, native
+from rank_tpu_torch.data import calibrated
 from rank_tpu_torch.data.synthetic import make_synthetic_dataset
+from rank_tpu_torch.features import schema_from_vocab_dir
 from rank_tpu_torch.ops.cin import xavier_uniform_
 from rank_tpu_torch.ops.kernels import _build
 from rank_tpu_torch.ops.kernels import cin as cin_kernels
@@ -151,6 +170,16 @@ ZOO_ROWS = 100_000
 MULTITASK_RUNS = (("mmoe", "sum"), ("ple", "sum"), ("esmm", "sum"), ("mmoe", "uncertainty"),
                   ("mmoe", "gradnorm"), ("mmoe", "pcgrad"))
 ZOO_REQUEST_ROWS = (1, 1000, 5000)
+# slice 7: the calibrated log at the scale of the training-quality protocol
+# (PARITY_CALIB_r05.md: 166,115 train and 30,452 eval rows), written by the
+# port's producers. The card's machine has pandas and pyarrow, so the
+# phase writes the ETL's npz and parquet files and trains from both; a
+# machine without them fails the phase. rank_tpu's eval AUC on that log
+# (mean of 3 seeds, 3 epochs, --dense_init torch) is printed beside the
+# port's; it is no parity test (ROADMAP A15).
+CALIBRATED_SCALE = 0.05
+CALIBRATED_RECORD = {"xdeepfm": 0.893, "din": 0.899}
+FILE_SERVE_ROWS = 1000
 # card against CPU at the bf16 defaults of BST and AutoInt: the probability
 # bar of tests/test_torch_zoo_forward.py (BF16_BAR)
 BF16_PROB_ATOL = 0.05
@@ -653,16 +682,18 @@ def read_history(output_dir: str):
 
 
 def run_cli(model: str, rows: int, epochs: int, workdir: str, card: str, extra=(),
-            run: str = ""):
-    """One CLI run at the defaults plus ``extra`` flags, in ``workdir``'s
-    directory ``run`` (the model's name by default); returns (model_dir,
-    history, launches of each kernel in the run)."""
+            run: str = "", data=()):
+    """One CLI run at the defaults plus ``extra`` flags, on ``--synthetic=rows``
+    or, where ``data`` gives file flags, on those files (``rows`` is then
+    the train file's), in ``workdir``'s directory ``run`` (the model's
+    name by default); returns (model_dir, history, launches of each kernel
+    in the run)."""
     run = run or model
     model_dir, output_dir = (os.path.join(workdir, run, d) for d in ("model_dir", "output_dir"))
     din_kernels.din_attention_cuda.launches = 0
     cin_kernels.cin_layer_cuda_t.launches = 0
     t0 = time.perf_counter()
-    rc = cli.main([f"--model={model}", f"--synthetic={rows}", f"--num_epochs={epochs}",
+    rc = cli.main([f"--model={model}", *(data or [f"--synthetic={rows}"]), f"--num_epochs={epochs}",
                    f"--model_dir={model_dir}", f"--output_dir={output_dir}", *extra])
     seconds = time.perf_counter() - t0
     launches = {"din_attention_fwd": din_kernels.din_attention_cuda.launches,
@@ -710,9 +741,16 @@ def train_din(workdir: str, card: str):
     want = 2 * train_steps + 3 * eval_steps
     check(launches["din_attention_fwd"] == want,
           f"din launched din_attention_fwd {launches['din_attention_fwd']} times, want {want}")
+    check_attention_moved(model_dir, WECHAT_SCHEMA)
+    return launches["din_attention_fwd"]
+
+
+def check_attention_moved(model_dir: str, schema) -> None:
+    """DIN's attention weights in ``model_dir``'s best model moved from the
+    trainer's initial values (their gradient flows through B1's operator)."""
     # the trainer draws the model from a generator seeded with its seed
     cfg = default_config("din")
-    initial = build_model(WECHAT_SCHEMA, cfg, device="cuda",
+    initial = build_model(schema, cfg, device="cuda",
                           generator=torch.Generator().manual_seed(TrainConfig.seed))
     trained = torch.load(os.path.join(model_dir, "best_model"), map_location="cuda",
                          weights_only=True)
@@ -720,13 +758,12 @@ def train_din(workdir: str, card: str):
     for name in ("w1", "b1", "w2", "b2", "w3", "b3"):
         before = getattr(initial.attention, name).detach()
         moved[name] = (trained[f"attention.{name}"] - before).abs().max().item()
-    emit(phase="din_attention_trained", max_abs_change=moved)
+    emit(phase="din_attention_trained", model_dir=model_dir, max_abs_change=moved)
     # b3 shifts every valid score alike, which the softmax cancels: its
     # gradient is rounding noise, so it is reported and not held to a bar.
     # The rest move by Adam steps of the order of the learning rate.
     check(all(moved[name] > 1e-3 for name in ("w1", "b1", "w2", "b2", "w3")),
           f"attention weights that did not move in training: {moved}")
-    return launches["din_attention_fwd"]
 
 
 def serve_xdeepfm(model_dir: str) -> None:
@@ -959,15 +996,15 @@ def serve_c2_shapes(gen: torch.Generator, card: str) -> dict:
 
 
 def serve_against_cpu(model: str, cfg, model_dir: str, requests, atol: float, rtol: float,
-                      card: str, run: str = "") -> None:
+                      card: str, run: str = "", schema=WECHAT_SCHEMA) -> None:
     """Serve ``model_dir``'s best model on the card and on the CPU; every
     head's scores on the card must match the CPU's within the tolerance
     (single-task models have one head, ``score``; the multi-task ones one
     a task, or ESMM's ``ctr`` and ``ctcvr``). A probability may saturate
     to 0 or 1 in f32 (DCN's cross terms grow with the square of the dense
     features), so the scores are held to [0, 1]."""
-    pred = Predictor(WECHAT_SCHEMA, cfg, model_dir=model_dir)
-    cpu = Predictor(WECHAT_SCHEMA, cfg, model_dir=model_dir, device="cpu")
+    pred = Predictor(schema, cfg, model_dir=model_dir)
+    cpu = Predictor(schema, cfg, model_dir=model_dir, device="cpu")
     dtype = cfg.transformer_dtype if model in ("bst", "autoint") else "float32"
     for n, req in requests.items():
         got_heads, want_heads = pred(req), cpu(req)
@@ -1042,6 +1079,148 @@ def train_and_serve_multitask(workdir: str, card: str) -> None:
         if run == "ple-sum":
             launches = check_export("ple", Predictor(WECHAT_SCHEMA, cfg, model_dir=model_dir))
             check(not any(launches.values()), f"the PLE artifact launched a kernel: {launches}")
+
+
+def length_shares(lengths: np.ndarray, t: int = 50) -> dict:
+    """The share of rows of each history length class."""
+    return {"zero": float(np.mean(lengths == 0)), "under_10": float(np.mean(lengths < 10)),
+            "full": float(np.mean(lengths == t)), "mean": float(np.mean(lengths))}
+
+
+def train_from_files(workdir: str, card: str):
+    """Slice 7's path: the port's producers write the calibrated log's files
+    (``make_calibrated_dataset`` at ``CALIBRATED_SCALE``: the log, the
+    WeChat ETL, ``arrays/*.npz`` and ``dataframe/*.parquet``), the CLI
+    trains xDeepFM and DIN from the npz files (2 epochs each) and xDeepFM
+    from the parquet files (1 epoch), at the defaults and the
+    vocabulary-sized schema; each run's kernel must launch once a step
+    (B2: once a layer), train and eval; the parquet frames must encode to
+    the npz arrays; each ``model_dir`` is served on the card against the
+    CPU to 1e-5 at ``FILE_SERVE_ROWS`` eval rows. Returns the phase's
+    launches of each kernel and one 1024-row batch of DIN's attention
+    inputs from the eval file (query, keys, lengths, weights, softmax)."""
+    emit(phase="native", native_available=native.available(), library=native._LIB_PATH)
+    cache = os.path.join(workdir, "calibrated")
+    t0 = time.perf_counter()
+    train, test, schema = calibrated.make_calibrated_dataset(
+        scale=CALIBRATED_SCALE, seed=SEED, cache_dir=cache)
+    etl_s = time.perf_counter() - t0
+    cfg_log = calibrated.CalibratedLogConfig(scale=CALIBRATED_SCALE, seed=SEED)
+    etl = os.path.join(cache, calibrated.log_cache_tag(cfg_log), "etl")
+    n_train, n_eval = len(train["labels"]), len(test["labels"])
+    emit(phase="etl_host_seconds", seconds=etl_s, scale=CALIBRATED_SCALE, train_rows=n_train,
+         eval_rows=n_eval, vocab_rows={f.name: f.vocab_size for f in schema.categorical},
+         eval_history_lengths=length_shares(test["his_read_comment_7d_seq_length"]), card=card)
+    check(schema == schema_from_vocab_dir(WECHAT_SCHEMA, os.path.join(etl, "vocabulary")),
+          "the dataset's schema is not the one its vocabulary files give")
+
+    t0 = time.perf_counter()
+    for split, arrays in (("train", train), ("test", test)):
+        frame = cli._load_split(os.path.join(etl, "dataframe", f"{split}.parquet"), schema,
+                                os.path.join(etl, "vocabulary"))
+        check(sorted(frame) == sorted(arrays), f"{split}.parquet encodes to keys {sorted(frame)}")
+        for key, value in arrays.items():
+            check(frame[key].dtype == value.dtype and np.array_equal(frame[key], value),
+                  f"{split}.parquet encodes {key} unlike {split}.npz")
+    emit(phase="parquet_equals_npz", splits=["train", "test"], encode_seconds=time.perf_counter() - t0)
+
+    def files(fmt):
+        sub = "arrays" if fmt == "npz" else "dataframe"
+        return [f"--train_data={etl}/{sub}/train.{fmt}", f"--eval_data={etl}/{sub}/test.{fmt}",
+                f"--vocabulary_dir={etl}/vocabulary"]
+
+    train_steps, eval_steps = -(-n_train // 1024), -(-n_eval // 1024)
+    layers = len(default_config("xdeepfm").cin_layer_sizes)
+    requests = {FILE_SERVE_ROWS: {k: v[:FILE_SERVE_ROWS] for k, v in test.items() if k != "labels"}}
+    launches = {"din_attention_fwd": 0, "cin_layer_fwd": 0}
+    model_dirs = {}
+    for model, fmt, epochs in (("xdeepfm", "npz", 2), ("din", "npz", 2), ("xdeepfm", "parquet", 1)):
+        run = f"{model}-{fmt}"
+        model_dir, history, got = run_cli(model, n_train, epochs, workdir, card, run=run,
+                                          data=files(fmt))
+        kernel, per_step = ("cin_layer_fwd", layers) if model == "xdeepfm" else ("din_attention_fwd", 1)
+        # every train step, and an eval pass an epoch and the best model's
+        want = per_step * (epochs * train_steps + (epochs + 1) * eval_steps)
+        check(got[kernel] == want, f"{run} launched {kernel} {got[kernel]} times, want {want}")
+        check(sum(got.values()) == got[kernel], f"{run} launched a kernel of another path: {got}")
+        best = max(h["eval_auc"] for h in history)
+        emit(phase="file_data_auc", model=model, run=run, epochs=epochs, best_eval_auc=best,
+             rank_tpu_calibrated_record=CALIBRATED_RECORD[model],
+             record_note="rank_tpu, 3 epochs, mean of 3 seeds, --dense_init torch "
+                         "(PARITY_CALIB_r05.md); no parity test (ROADMAP A15)", card=card)
+        check(best > 0.6, f"{run} eval AUC {best} is not above 0.6")
+        for key in launches:
+            launches[key] += got[key]
+        model_dirs[run] = model_dir
+    check_attention_moved(model_dirs["din-npz"], schema)
+
+    for run in ("xdeepfm-npz", "din-npz"):
+        model = run.split("-")[0]
+        zero_launches()
+        serve_against_cpu(model, default_config(model), model_dirs[run], requests, 1e-5, 1e-5,
+                          card, run=run, schema=schema)
+        served = kernel_launches()
+        check(served["din_attention_fwd" if model == "din" else "cin_layer_fwd"] > 0,
+              f"serving {run} launched {served}")
+        for key in launches:
+            launches[key] += served[key]
+    emit(phase="file_data_launches", launches=launches)
+
+    cfg = default_config("din")
+    din = Predictor(schema, cfg, model_dir=model_dirs["din-npz"]).model
+    seq = cfg.seq_feature
+    batch = {k: torch.as_tensor(v[:1024]).cuda() for k, v in test.items() if k != "labels"}
+    with torch.no_grad():
+        q = din.tables.lookup("feedid", batch["feedid"]).contiguous()
+        keys = din.tables.lookup(seq, batch[seq]).contiguous()
+        attention = din.attention
+        params = tuple(getattr(attention, n).detach().contiguous()
+                       for n in ("w1", "b1", "w2", "b2", "w3", "b3"))
+    return launches, (q, keys, batch[seq + "_length"].contiguous(), params, cfg.use_softmax)
+
+
+def check_din_on_file_data(file_b1) -> float:
+    """B1 against its plain version on a 1024-row batch of the eval file
+    (the trained model's query, keys and weights, the file's history
+    lengths), to 1e-5; returns the largest error."""
+    q, keys, lengths, params, use_softmax = file_b1
+    got, kernel = launched_din_kernel(
+        lambda: din_kernels.din_attention_cuda(q, keys, lengths, params, use_softmax))
+    want = din_kernels.din_attention_plain(q, keys, lengths, params, use_softmax)
+    exact = din_kernels.din_attention_plain(q.double(), keys.double(), lengths,
+                                            [p.double() for p in params], use_softmax)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    emit(phase="kernel_vs_plain_file_data", kernel=kernel, B=q.shape[0], T=keys.shape[1],
+         D=q.shape[1], use_softmax=use_softmax, max_abs_err=err,
+         max_abs_out=want.abs().max().item(), **errors_vs_f64(got, want, exact),
+         history_lengths=length_shares(lengths.cpu().numpy(), keys.shape[1]))
+    check(kernel == "din_attention_fwd", f"B1 ran {kernel} on the file data")
+    check_against_plain(kernel, got, want, exact, False)
+    return err
+
+
+def time_file_lengths(file_b1, card: str, mma_sync_tflops: float) -> None:
+    """B1 on the file batch against the same query and keys with lengths
+    uniform in [0, 50] (the synthetic generator's), and the plain version
+    on each, in turns, CUDA events with a cold L2; each beside its bound
+    for its own lengths."""
+    q, keys, lengths, params, use_softmax = file_b1
+    gen = torch.Generator().manual_seed(SEED + 7)
+    t = keys.shape[1]
+    uniform = torch.randint(0, t + 1, lengths.shape, generator=gen, dtype=torch.int32).cuda()
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    fns = [lambda lens=lens, fn=fn: fn(q, keys, lens, params, use_softmax)
+           for lens in (lengths, uniform)
+           for fn in (din_kernels.din_attention_cuda, din_kernels.din_attention_plain)]
+    times = [statistics.median(ms) for ms in
+             times_in_turns(fns, lambda fn: device_ms(fn, flush), runs=20)]
+    h1, h2 = params[0].shape[1], params[2].shape[1]
+    for name, lens, (ms, plain_ms) in (("file", lengths, times[:2]), ("uniform", uniform, times[2:])):
+        emit(phase="time_file_lengths", lengths=name, B=q.shape[0], T=t, ms=ms,
+             plain_ms=plain_ms, valid_steps=int(lens.sum()),
+             **din_bound(lens, t, q.shape[1], h1, h2, mma_sync_tflops),
+             history_lengths=length_shares(lens.cpu().numpy(), t), card=card)
 
 
 # -- phase 5 ------------------------------------------------------------------
@@ -1263,11 +1442,15 @@ def main(argv=None) -> int:
         serve_xdeepfm(xdeepfm_dir)
         train_and_serve_zoo(workdir, card)
         train_and_serve_multitask(workdir, card)
+        file_launches, file_b1 = train_from_files(workdir, card)
+    file_err = check_din_on_file_data(file_b1)
     serve_din(gen, card)
     c2_launches = serve_c2_shapes(gen, card)
 
     # 5. times on the card
-    timings = time_kernels(gen, card, mma_sync_ceiling(card))
+    mma_sync_tflops = mma_sync_ceiling(card)
+    timings = time_kernels(gen, card, mma_sync_tflops)
+    time_file_lengths(file_b1, card, mma_sync_tflops)
     host_overhead(gen, card)
     profile_train_step("xdeepfm", card)
     profile_train_step("bst", card)
@@ -1280,14 +1463,16 @@ def main(argv=None) -> int:
     for name, timed, source, replaces, launches, err in (
         ("din_attention_fwd", ("din_attention_fwd", 1024),
          "rank_tpu_torch/ops/kernels/csrc/din_attention.cu",
-         "rank_tpu/ops/pallas/din_attention.py:156", din_launches, din_err),
+         "rank_tpu/ops/pallas/din_attention.py:156",
+         din_launches + file_launches["din_attention_fwd"], max(din_err, file_err)),
         # the generic B1 kernel, launched on slice 6's path (DIN at D = 12)
         ("din_attention_generic_fwd", ("din_attention_generic_fwd", "D12"),
          "rank_tpu_torch/ops/kernels/csrc/din_attention.cu",
          "rank_tpu/ops/pallas/din_attention.py:156",
          c2_launches["din_attention_generic_fwd"], din_c2_err["din_attention_generic_fwd"]),
         ("cin_layer_fwd", ("cin_layer_fwd/layer1", 1024), "rank_tpu_torch/ops/kernels/csrc/cin.cu",
-         "rank_tpu/ops/pallas/cin.py:140", cin_launches, cin_err),
+         "rank_tpu/ops/pallas/cin.py:140", cin_launches + file_launches["cin_layer_fwd"],
+         cin_err),
     ):
         # B = 1024: the batch of the training path; B2 at its heavier layer.
         # library_ms: none for B1 (no single PyTorch call computes DIN

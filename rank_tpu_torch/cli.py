@@ -8,10 +8,18 @@ the kernels on the CPU). ``main`` trains, evaluates each epoch, saves the
 best model on eval AUC and periodic checkpoints, resumes, reloads the best
 model and writes ``predictions.csv`` and ``metrics_history.jsonl``.
 
-Data: ``--synthetic=N`` rows. Every flag whose path is not ported yet raises
-``NotImplementedError`` naming its ``ROADMAP.md`` item, rather than being
-ignored: ``--train_data``/``--eval_data`` (parquet or npz; A12),
-``--synthetic_calibrated`` (A12), ``--init_from_reference`` (A11),
+Data, as the JAX CLI takes it: ``--synthetic_calibrated=SCALE`` (the
+calibrated log through the WeChat ETL, ``data/calibrated.py``) wins over
+``--synthetic=N`` rows (split 85/15), which wins over files:
+``--train_data``/``--eval_data`` as the ETL's ``.npz`` arrays or its
+``.parquet`` frames (encoded on the fly; pandas is imported only then),
+with ``--vocabulary_dir``, whose files size the tables. A missing
+vocabulary file prints the names and exits 2. ``--init_from_reference``
+warm-starts dcn or deepcrossing from the original repo's
+``best_model.pth`` (``interop.py``) before ``--resume``.
+
+Every flag whose path is not ported yet raises ``NotImplementedError``
+naming its ``ROADMAP.md`` item, rather than being ignored:
 ``--table_parallelism`` > 1, an ``--embedding_mode`` other than ``gspmd``
 and ``--staged_shuffle=local`` (A13), ``--profile_dir`` and
 ``--matmul_precision`` (A14).
@@ -31,9 +39,10 @@ import json
 import os
 import sys
 
+from .data.encode import encode_dataframe, load_npz
 from .data.loader import ArrayLoader, num_rows, split_train_test
 from .data.synthetic import make_synthetic_dataset
-from .features import WECHAT_SCHEMA
+from .features import WECHAT_SCHEMA, schema_from_vocab_dir
 from .models import DEFAULT_CONFIGS, default_config
 from .train import CheckpointManager, TrainConfig, Trainer, export_predictions
 from .train.staged import StagedRunner
@@ -55,7 +64,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--synthetic", type=int, default=0,
                    help="train on N synthetic rows instead of real data")
     p.add_argument("--synthetic_calibrated", type=float, default=0.0,
-                   help="the EDA-calibrated synthetic log at this scale (not ported yet)")
+                   help="train on the EDA-calibrated synthetic log at this scale "
+                   "(generated once, run through the WeChat ETL and cached; "
+                   "data/calibrated.py)")
     # reference-named training flags
     p.add_argument("--model_dir", type=str, default="./model_dir")
     p.add_argument("--output_dir", type=str, default="./output_dir")
@@ -65,7 +76,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--save_checkpoints_steps", type=int, default=1000)
     p.add_argument("--resume", type=_str2bool, default=False)
     p.add_argument("--init_from_reference", type=str, default=None,
-                   help="warm-start from a reference best_model.pth (not ported yet)")
+                   help="warm-start from a reference best_model.pth (dcn/deepcrossing): "
+                   "trained tensors are imported, layers absent from the checkpoint "
+                   "keep fresh init")
     # model hyperparameters (union; reference names)
     p.add_argument("--hidden_units", type=str, default=None)
     p.add_argument("--embedding_dim", type=int, default=None)
@@ -165,10 +178,6 @@ def model_config_from_args(args):
 def _refuse_unported(args) -> None:
     """Raise for every asked-for path the port does not have yet."""
     unported = [
-        (args.train_data or args.eval_data,
-         "--train_data/--eval_data (parquet and npz loading; ROADMAP A12)"),
-        (args.synthetic_calibrated, "--synthetic_calibrated (ROADMAP A12)"),
-        (args.init_from_reference, "--init_from_reference (ROADMAP A11)"),
         (args.table_parallelism > 1, "--table_parallelism > 1 (ROADMAP A13)"),
         (args.embedding_mode not in (None, "gspmd"),
          f"--embedding_mode={args.embedding_mode} (ROADMAP A13)"),
@@ -181,6 +190,14 @@ def _refuse_unported(args) -> None:
             raise NotImplementedError(f"{what} is not ported to rank_tpu_torch yet")
 
 
+def _load_split(path: str, schema, vocab_dir: str):
+    if path.endswith(".npz"):
+        return load_npz(path)
+    import pandas as pd
+
+    return encode_dataframe(pd.read_parquet(path), schema, vocab_dir)
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if not (args.synthetic or args.synthetic_calibrated) and not (
@@ -191,9 +208,26 @@ def main(argv=None) -> int:
     model_cfg = model_config_from_args(args)
     _refuse_unported(args)
 
-    schema = WECHAT_SCHEMA
-    data = make_synthetic_dataset(schema, num_rows=args.synthetic)
-    train_data, eval_data = split_train_test(data, test_fraction=0.15)
+    if args.synthetic_calibrated:
+        from .data.calibrated import make_calibrated_dataset
+
+        train_data, eval_data, schema = make_calibrated_dataset(scale=args.synthetic_calibrated)
+    elif args.synthetic:
+        schema = WECHAT_SCHEMA
+        data = make_synthetic_dataset(schema, num_rows=args.synthetic)
+        train_data, eval_data = split_train_test(data, test_fraction=0.15)
+    else:
+        # a wrong vocabulary dir would otherwise train on 100% OOV ids:
+        # load_vocabulary returns [] for a missing file
+        missing = [f.vocab_file for f in WECHAT_SCHEMA.categorical
+                   if not os.path.exists(os.path.join(args.vocabulary_dir, f.vocab_file))]
+        if missing:
+            print(f"vocabulary files missing in {args.vocabulary_dir!r}: {missing} "
+                  "— wrong --vocabulary_dir?", file=sys.stderr)
+            return 2
+        schema = schema_from_vocab_dir(WECHAT_SCHEMA, args.vocabulary_dir)
+        train_data = _load_split(args.train_data, schema, args.vocabulary_dir)
+        eval_data = _load_split(args.eval_data, schema, args.vocabulary_dir)
 
     train_cfg = TrainConfig(
         model_dir=args.model_dir,
@@ -209,6 +243,14 @@ def main(argv=None) -> int:
     bs = train_cfg.batch_size
     runner = StagedRunner(trainer, train_data, eval_data, bs) if args.device_resident else None
     state = trainer.init_state()
+    if args.init_from_reference:
+        from .interop import import_reference_checkpoint
+
+        model = state["model"]
+        state_dict, report = import_reference_checkpoint(
+            args.init_from_reference, args.model, model.state_dict())
+        model.load_state_dict(state_dict)
+        print(f"warm-started {len(report)} tensors from {args.init_from_reference}")
     mgr = CheckpointManager(args.model_dir)
 
     start_epoch = 1

@@ -3,9 +3,9 @@
 The dataset is a dict of numpy arrays with one row per example; a batch is
 a dict of row slices of it. The same seed gives the same batches, the same
 ``_valid`` padding and the same ``num_batches`` as the JAX loader (the tests
-check byte identity). The JAX loader gathers rows with ``native.take_rows``
-(a threaded memcpy); this copy uses numpy's ``take``, which gives the same
-bytes.
+check byte identity). Rows are gathered with ``native.take_rows`` (a
+threaded memcpy; numpy's fancy index where the host library is missing),
+as the JAX loader does.
 
 ``drop_remainder=False`` pads the final short batch by repeating row 0 and
 reports the true rows in the ``_valid`` mask, so every row is covered while
@@ -20,6 +20,8 @@ from typing import Dict, Iterator, Optional
 
 import numpy as np
 
+from .. import native
+
 Batch = Dict[str, np.ndarray]
 
 
@@ -32,10 +34,6 @@ def shard_for_process(data: Batch, process_index: int, process_count: int) -> Ba
     if process_count <= 1:
         return data
     return {k: v[process_index::process_count] for k, v in data.items()}
-
-
-def _take(v: np.ndarray, idx: np.ndarray) -> np.ndarray:
-    return np.take(v, idx, axis=0)
 
 
 class ArrayLoader:
@@ -84,17 +82,18 @@ class ArrayLoader:
             self._rng.shuffle(order)
         bs = self.batch_size
         num_full = self.n // bs
+        take = native.take_rows
         emitted = 0
         for i in range(num_full):
             idx = order[i * bs : (i + 1) * bs]
-            batch = {k: _take(v, idx) for k, v in self.data.items()}
+            batch = {k: take(v, idx) for k, v in self.data.items()}
             batch["_valid"] = np.ones((bs,), np.float32)
             emitted += 1
             yield batch
         rem = self.n - num_full * bs
         if rem and not self.drop_remainder:
             idx = np.concatenate([order[num_full * bs :], np.zeros(bs - rem, np.int64)])
-            batch = {k: _take(v, idx) for k, v in self.data.items()}
+            batch = {k: take(v, idx) for k, v in self.data.items()}
             valid = np.zeros((bs,), np.float32)
             valid[:rem] = 1.0
             batch["_valid"] = valid
@@ -102,7 +101,7 @@ class ArrayLoader:
             yield batch
         while self.num_batches is not None and emitted < self.num_batches:
             idx = np.zeros(bs, np.int64)
-            batch = {k: _take(v, idx) for k, v in self.data.items()}
+            batch = {k: take(v, idx) for k, v in self.data.items()}
             batch["_valid"] = np.zeros((bs,), np.float32)
             emitted += 1
             yield batch

@@ -1,4 +1,5 @@
-"""Carry the JAX package's weights over into the port's modules.
+"""Carry weights into the port's modules: the JAX package's, and the
+original repo's trained checkpoints.
 
 ``state_dict_from_flax(model, variables)`` takes flax variables as a
 nested dict of arrays, ``{"params": ..., "batch_stats": ...}`` (unboxed:
@@ -31,6 +32,16 @@ left over raises. A bf16 leaf (the variables of a JAX Predictor built with
 ``weights_dtype='bfloat16'``, ml_dtypes' ``bfloat16``, which
 ``torch.from_numpy`` refuses) is carried over exactly, through f32, as a
 bf16 tensor; every other leaf takes the model's dtype.
+
+``import_reference_checkpoint(path, model_name, state_dict)`` is the port
+of ``rank_tpu/interop.py``: it warm-starts dcn or deepcrossing from the
+original repo's ``best_model.pth``. Every tensor the original trained and
+saved (embedding tables, DCN's MLP tower, the output layer) lands on the
+port's parameter of the same role; layers the original created fresh in
+``forward`` and never saved (DCN's cross weights, DeepCrossing's residual
+units) keep their fresh initialisation. Both sides are torch layouts
+(``nn.Linear`` weights (out, in), embedding rows 1:1 with the +1 OOV row),
+so no tensor is transposed, where the JAX import transposes every kernel.
 """
 
 from __future__ import annotations
@@ -100,3 +111,59 @@ def state_dict_from_flax(model: nn.Module, variables: Mapping) -> Dict[str, torc
             + ", ".join("/".join(p) for p in sorted(flat))
         )
     return out
+
+
+# -- the original repo's checkpoints -----------------------------------------
+
+REFERENCE_FIELDS = (
+    "userid", "device", "authorid", "bgm_song_id", "bgm_singer_id",
+    "manual_tag_list",
+)
+
+
+def reference_mapping(model_name: str) -> Dict[str, str]:
+    """The original repo's state_dict key -> the port's state_dict key."""
+    mapping = {f"embeddings.{f}.weight": f"tables.table_{f}.weight" for f in REFERENCE_FIELDS}
+    if model_name == "dcn":
+        for i, li in enumerate((0, 2, 4)):  # torch Sequential Linear slots
+            mapping[f"dnn.{li}.weight"] = f"dnn.Dense_{i}.weight"
+            mapping[f"dnn.{li}.bias"] = f"dnn.Dense_{i}.bias"
+    elif model_name != "deepcrossing":
+        raise ValueError(
+            f"no reference checkpoint mapping for {model_name!r}; the "
+            "reference ships .pth files for dcn and deepcrossing only"
+        )
+    mapping["output_layer.weight"] = "output.weight"
+    mapping["output_layer.bias"] = "output.bias"
+    return mapping
+
+
+def import_reference_checkpoint(
+    path: str, model_name: str, state_dict: Mapping[str, torch.Tensor]
+) -> Tuple[Dict[str, torch.Tensor], Dict[str, str]]:
+    """Load an original ``best_model.pth`` and copy its tensors into a copy
+    of ``state_dict`` (a model's; each tensor takes that entry's dtype and
+    device). Returns (state_dict, report), where report maps every
+    checkpoint tensor to the key it landed on. Raises if a checkpoint
+    tensor has no home or a shape differs: a partial import would be worse
+    than an error. The port has no table sharding, so a table with fewer
+    rows than the model's raises too (``rank_tpu``'s import with
+    ``table_padding=None``)."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    mapping = reference_mapping(model_name)
+    unmapped = set(sd) - set(mapping)
+    if unmapped:
+        raise ValueError(f"checkpoint tensors with no home in the model: {sorted(unmapped)}")
+    out = dict(state_dict)
+    report: Dict[str, str] = {}
+    for ref_key, key in mapping.items():
+        if ref_key not in sd:
+            continue  # mapping is a superset for models with optional parts
+        if key not in out:
+            raise KeyError(f"the model has no {key} for {ref_key}")
+        have, want = tuple(out[key].shape), tuple(sd[ref_key].shape)
+        if have != want:
+            raise ValueError(f"shape mismatch at {key}: model {have} vs import {want}")
+        out[key] = sd[ref_key].to(dtype=out[key].dtype, device=out[key].device)
+        report[ref_key] = key
+    return out, report

@@ -224,6 +224,9 @@ def _imported_modules(path: Path):
 def test_port_imports_nothing_of_jax():
     files = sorted((ROOT / "rank_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    names = {str(p.relative_to(ROOT)) for p in files}
+    assert {"rank_tpu_torch/native/__init__.py", "rank_tpu_torch/data/calibrated.py",
+            "rank_tpu_torch/data/etl.py"} <= names
     for path in files:
         for module in _imported_modules(path):
             top = module.split(".")[0]
@@ -238,7 +241,8 @@ def test_port_imports_nothing_of_jax():
         "rank_tpu_torch.ops.rnn, rank_tpu_torch.models.fm_family, "
         "rank_tpu_torch.models.cross_family, rank_tpu_torch.models.sequence, "
         "rank_tpu_torch.models.multitask, rank_tpu_torch.train.mtl, rank_tpu_torch.serve, "
-        "rank_tpu_torch.ops.kernels; "
+        "rank_tpu_torch.ops.kernels, rank_tpu_torch.native, rank_tpu_torch.data.encode, "
+        "rank_tpu_torch.data.etl, rank_tpu_torch.data.calibrated, rank_tpu_torch.data.douban; "
         "new = {m.split('.')[0] for m in set(sys.modules) - before}; "
         "assert not new & {'jax', 'flax', 'rank_tpu'}, new"
     )

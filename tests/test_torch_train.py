@@ -242,9 +242,12 @@ def jax_first_step(jtrainer, jstate, jbatch):
     return float(loss), jax.device_get(grads)
 
 
-def check_train_step_parity(name: str, overrides: dict, noise: dict, lr: float = 0.005):
+def check_train_step_parity(name: str, overrides: dict, noise: dict, lr: float = 0.005,
+                            schemas=None, data=None, batch_size: int = PARITY_BS):
     """One JAX trainer and one port trainer from the same weights (the JAX
-    init, carried over) and the same three batches. Step 1: loss and every
+    init, carried over) and the same three batches: by default of the tiny
+    schema's synthetic rows, else the first three ``batch_size`` batches of
+    ``data`` under ``schemas`` (the port's schema, JAX's). Step 1: loss and every
     gradient. After 3 Adam steps: every parameter and BatchNorm running
     statistic. Under gradnorm, GradNorm's weights and initial losses after
     every step.
@@ -256,12 +259,13 @@ def check_train_step_parity(name: str, overrides: dict, noise: dict, lr: float =
     BatchNorms they feed, which take (1 - decay) of each batch mean, at
     atol = steps * lr * (1 - decay) (``bn_fed_bias_noise``). ``noise`` maps
     each such key to its atol."""
-    schema, jax_schema = tiny_schema(), jax_tiny_schema()
-    data = make_synthetic_dataset(schema, num_rows=3 * PARITY_BS, seed=11)
-    batches = list(ArrayLoader(data, PARITY_BS))
+    schema, jax_schema = schemas or (tiny_schema(), jax_tiny_schema())
+    if data is None:
+        data = make_synthetic_dataset(schema, num_rows=3 * batch_size, seed=11)
+    batches = list(ArrayLoader(data, batch_size))[:3]
 
     jtrainer = JaxTrainer(jax_schema, jax_default_config(name, **overrides),
-                          JaxTrainConfig(batch_size=PARITY_BS, learning_rate=lr, log_every=0))
+                          JaxTrainConfig(batch_size=batch_size, learning_rate=lr, log_every=0))
     jstate = jtrainer.init_state(batches[0])
     variables0 = _variables(jstate)
     jbatches = [jtrainer._host_to_device(b) for b in batches]
@@ -274,7 +278,7 @@ def check_train_step_parity(name: str, overrides: dict, noise: dict, lr: float =
         jmtl_states.append(jax.device_get(jstate.get("mtl")))
 
     trainer = Trainer(schema, default_config(name, **overrides),
-                      TrainConfig(batch_size=PARITY_BS, learning_rate=lr, log_every=0),
+                      TrainConfig(batch_size=batch_size, learning_rate=lr, log_every=0),
                       device="cpu")
     state = trainer.init_state()
     model = state["model"]
@@ -377,10 +381,6 @@ def test_cli_error_paths(tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--model=din", "--synthetic=0", "--train_data=a.parquet", "--eval_data=b.parquet",
-     "--vocabulary_dir=v"],
-    ["--model=din", "--synthetic_calibrated=0.1"],
-    ["--model=din", "--init_from_reference=best_model.pth"],
     ["--model=din", "--table_parallelism=2"],
     ["--model=din", "--embedding_mode=psum"],
     ["--model=din", "--staged_shuffle=local"],
