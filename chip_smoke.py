@@ -99,6 +99,25 @@ Phases; any failure raises and the script exits non-zero:
         version, to 1e-5, on a 1024-row batch of the eval file (the
         trained model's query, keys and weights, the file's skewed history
         lengths, whose shares are printed);
+     h. the table-sharded path (slice 8): ``cli.main`` on two ranks at
+        ``--table_parallelism=2`` (one data rank), spawned after the build,
+        each rank's kernel launches read in the rank: NCCL on two cards
+        when there are two, else gloo over CUDA tensors with both ranks on
+        the one card (the phase fails, it is not skipped, when neither
+        runs). xDeepFM (B2) under ``--embedding_mode=gspmd`` and DIN (B1)
+        under ``psum`` and ``alltoall``, 50,000 rows, 1 epoch, full width
+        on ``WECHAT_SCHEMA`` at the default ``min_rows_to_shard``: feedid,
+        userid and bgm_singer_id padded to an even row count, those and
+        authorid and bgm_song_id row-sharded, device and manual_tag_list
+        replicated. Each model also runs on one rank (t = 1, same seed).
+        Both ranks' losses must be equal and every train step's must agree
+        with the one-rank run's to rtol 2e-4 / atol 2e-5 (every run in
+        torch's deterministic mode: ``sharded_rank``), the eval AUC to
+        1e-4, B2 or B1 must launch
+        on every rank, and the best model, in the normal form, served on
+        one rank must match the one-rank run's to 1e-5 on 1000 rows. One
+        ``sharded`` line a run (backend, the epoch time beside the
+        one-rank time);
   5. times on the card: each kernel, its plain version (no yardstick of
      speed: it repeats the kernel's arithmetic in unfused torch ops), the
      one PyTorch call that computes the same function where there is one
@@ -117,7 +136,8 @@ Phases; any failure raises and the script exits non-zero:
      device operations, launches a step and the device-busy share.
 
 Then it prints one line ``{"kernels": [...]}`` (a row for each kernel
-variant, with the C2 shapes it ran), the card's line and, last,
+variant, with the C2 shapes it ran; the launches include phase 4h's, every
+rank's), the card's line and, last,
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -207,6 +227,13 @@ C2_DIN_SHAPES = (("D12", 50, 12, (64, 32)), ("D128", 50, 128, (64, 32)),
                  ("hidden32x16", 50, 16, (32, 16)), ("hidden64x64", 50, 16, (64, 64)),
                  ("T4096", 4096, 16, (64, 32)), ("T1024_D64", 1024, 64, (64, 32)))
 C2_B = (7, 1024)
+# phase 4h: the table-sharded path on two ranks at t = 2 against one rank,
+# full width on WECHAT_SCHEMA at the default min_rows_to_shard (1024)
+SHARDED_ROWS = 50_000
+SHARDED_RUNS = (("xdeepfm", "gspmd"), ("din", "psum"), ("din", "alltoall"))
+SHARDED_TABLES = ("authorid", "bgm_singer_id", "bgm_song_id", "feedid", "userid")
+PADDED_TABLES = {"feedid": (106_445, 106_446), "userid": (19_627, 19_628),
+                 "bgm_singer_id": (17_501, 17_502)}
 # The bf16 Predictor against the f32 one (tests/test_serve.py's bar), and
 # the card's bf16 Predictor against the CPU's: on the card B1 and B2
 # compute in f32 what the CPU's plain versions compute in bf16, so the two
@@ -1223,6 +1250,186 @@ def time_file_lengths(file_b1, card: str, mma_sync_tflops: float) -> None:
              history_lengths=length_shares(lens.cpu().numpy(), t), card=card)
 
 
+# -- phase 4h: the table-sharded path on ranks ----------------------------------
+
+
+def sharded_rank(rank: int, world: int, store: str, backend: str, argv, out_path: str) -> None:
+    """One rank of the ``sharded`` phase, spawned: ``cli.main(argv)`` in a
+    process group of ``world`` ranks (none for one rank), recording every
+    train step's loss, the epoch's time, the trainer's shard records and
+    this process's kernel launches, which are read here, in the child.
+
+    Every run of the phase, the one-rank runs too, takes torch's
+    deterministic algorithms: CUDA's embedding backward over a small table
+    with many repeated ids (DIN's 351-row tag table, 14 tags a row) sums
+    in no fixed order, so two one-rank runs differ by rounding that Adam
+    turns into steps of +-lr, which the phase's bars (losses to rtol 2e-4,
+    served scores to 1e-5) would read as the sharded path's error."""
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"  # before cuBLAS starts
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from rank_tpu_torch.parallel import init_distributed
+    from rank_tpu_torch.train import loop
+
+    if world > 1:
+        # the ranks share the host's cores: without this, each rank's
+        # intra-op threads spin against the other's
+        torch.set_num_threads(max(1, (os.cpu_count() or world) // world))
+        init_distributed(backend=backend, init_method=f"file://{store}", rank=rank,
+                         world_size=world, timeout_s=600)
+    record = {"losses": [], "epoch_seconds": []}
+    step, epoch, init = loop.Trainer.train_step, loop.Trainer.train_epoch, loop.Trainer.init_state
+
+    def train_step(self, state, meters, batch):
+        before = float(meters["loss"])
+        step(self, state, meters, batch)
+        record["losses"].append(float(meters["loss"]) - before)
+
+    def train_epoch(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = epoch(self, *args, **kwargs)
+        record["epoch_seconds"].append(time.perf_counter() - t0)
+        return out
+
+    def init_state(self):
+        state = init(self)
+        record.update(decisions=self.shard_decisions, table_padding=self.table_padding,
+                      sharded_tables=list(self.sharded_table_names),
+                      backend=self.mesh.backend,
+                      device=str(self.device))
+        return state
+
+    loop.Trainer.train_step, loop.Trainer.train_epoch = train_step, train_epoch
+    loop.Trainer.init_state = init_state
+    zero_launches()
+    record["rc"] = cli.main(list(argv))
+    record["launches"] = kernel_launches()
+    if world > 1:
+        torch.distributed.destroy_process_group()
+    with open(out_path, "w") as f:
+        json.dump(record, f)
+
+
+def spawn_ranks(world: int, backend: str, argv, workdir: str, timeout_s: float = 600):
+    """Run ``sharded_rank`` on ``world`` spawned ranks; every rank must exit 0."""
+    ctx = torch.multiprocessing.get_context("spawn")
+    store = os.path.join(workdir, "store")
+    outs = [os.path.join(workdir, f"rank_{r}.json") for r in range(world)]
+    procs = [ctx.Process(target=sharded_rank, args=(r, world, store, backend, argv, outs[r]))
+             for r in range(world)]
+    for proc in procs:
+        proc.start()
+    deadline = time.monotonic() + timeout_s
+    for proc in procs:
+        proc.join(max(deadline - time.monotonic(), 1))
+    for proc in procs:
+        if proc.is_alive():
+            proc.kill()
+            proc.join(30)
+    codes = [proc.exitcode for proc in procs]
+    check(codes == [0] * world, f"sharded ranks {argv[:3]} exited {codes}")
+    records = []
+    for out in outs:
+        with open(out) as f:
+            records.append(json.load(f))
+    check(all(r["rc"] == 0 for r in records), f"sharded ranks {argv[:3]}: the CLI failed")
+    return records
+
+
+def embedding_backward_repeats(card: str) -> None:
+    """Why the sharded phase runs in torch's deterministic mode: the
+    largest difference between two identical embedding backwards on the
+    card, outside that mode, at DIN's tag-table and feedid shapes."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for name, (ids, rows, dim) in {"manual_tag_seq": (1024 * 14, 352, 4),
+                                   "his_read_comment_7d_seq": (1024 * 50, 106_446, 16)}.items():
+        idx = torch.randint(0, rows, (ids,), device="cuda", generator=gen)
+        ct = torch.randn(ids, dim, device="cuda", generator=gen)
+        grads = []
+        for _ in range(2):
+            weight = torch.zeros(rows, dim, device="cuda", requires_grad=True)
+            torch.nn.functional.embedding(idx, weight).backward(ct)
+            grads.append(weight.grad)
+        emit(phase="embedding_backward_repeat", table=name, ids=ids, rows=rows, dim=dim,
+             max_abs_diff=float((grads[0] - grads[1]).abs().max()), card=card)
+
+
+def sharded_phase(workdir: str, card: str) -> dict:
+    """Phase 4h: ``cli.main`` on two ranks at t = 2 (NCCL on two cards,
+    else gloo over CUDA tensors, both ranks on the one card), at full width
+    on ``WECHAT_SCHEMA``: xDeepFM under ``gspmd`` (its ``uniform_tables``),
+    DIN under ``psum`` and ``alltoall``; and each model on one rank at
+    t = 1, same seed. Returns the phase's launches of each kernel."""
+    embedding_backward_repeats(card)
+    backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    kernel = {"xdeepfm": "cin_layer_fwd", "din": "din_attention_fwd"}
+    totals = {"cin_layer_fwd": 0, "din_attention_fwd": 0}
+    ones = {}
+    for model, mode in SHARDED_RUNS:
+        runs = {}
+        for t in (1, 2):
+            name = f"{model}_t{t}" if t == 1 else f"{model}_{mode}_t2"
+            if t == 1 and model in ones:
+                runs[t] = ones[model]
+                continue
+            run_dir = os.path.join(workdir, "sharded", name)
+            os.makedirs(run_dir)
+            argv = [f"--model={model}", f"--synthetic={SHARDED_ROWS}", "--num_epochs=1",
+                    f"--table_parallelism={t}", f"--embedding_mode={mode}",
+                    f"--model_dir={run_dir}/model_dir", f"--output_dir={run_dir}/output_dir"]
+            records = spawn_ranks(t, backend, argv, run_dir)
+            for r in records:
+                totals[kernel[model]] += r["launches"][kernel[model]]
+            runs[t] = (run_dir, records, read_history(f"{run_dir}/output_dir"))
+            if t == 1:
+                ones[model] = runs[t]
+        (dir1, (one,), hist1), (dir2, ranks, hist2) = runs[1], runs[2]
+        losses = np.asarray(ranks[0]["losses"])
+        want = np.asarray(one["losses"])
+        check(len(losses) == len(want) > 0, f"{model} {mode}: {len(losses)} steps, want {len(want)}")
+        # the table peers hold replicas of every dense parameter: equal losses
+        rank_diff = max(float(np.max(np.abs(np.asarray(r["losses"]) - losses))) for r in ranks)
+        check(rank_diff == 0.0, f"{model} {mode}: the ranks' losses differ by {rank_diff}")
+        rel = float(np.max(np.abs(losses - want) / np.maximum(np.abs(want), 1e-12)))
+        np.testing.assert_allclose(losses, want, rtol=2e-4, atol=2e-5)
+        auc, auc1 = hist2[0]["eval_auc"], hist1[0]["eval_auc"]
+        check(abs(auc - auc1) <= 1e-4, f"{model} {mode}: eval AUC {auc} against {auc1} at t = 1")
+        launches = [r["launches"][kernel[model]] for r in ranks]
+        check(all(n > 0 for n in launches), f"{model} {mode}: {kernel[model]} launches {launches}")
+        rec = ranks[0]
+        sharded = sorted(rec["sharded_tables"])
+        check(sharded == sorted(SHARDED_TABLES), f"{model} {mode}: sharded {sharded}")
+        for feature, rows in PADDED_TABLES.items():
+            check(tuple(rec["table_padding"].get(feature, ())) == rows,
+                  f"{model} {mode}: {feature} padded {rec['table_padding'].get(feature)}")
+        replicated = rec["decisions"]["replicated"]
+        for feature in ("device", "manual_tag_list"):
+            check(any(f"_{feature}']" in leaf for leaf in replicated)
+                  and not any(f"_{feature}']" in leaf for leaf in rec["decisions"]["sharded"]),
+                  f"{model} {mode}: {feature} is not replicated")
+        # the best model in the normal form, served on one rank, against the t = 1 run's
+        cfg = default_config(model)
+        rows = {k: v[:1000] for k, v in make_synthetic_dataset(WECHAT_SCHEMA, num_rows=1000,
+                                                              seed=7).items()}
+        got = Predictor(WECHAT_SCHEMA, cfg, model_dir=f"{dir2}/model_dir")(rows)["score"]
+        ref = Predictor(WECHAT_SCHEMA, cfg, model_dir=f"{dir1}/model_dir")(rows)["score"]
+        serve_err = float(np.max(np.abs(got - ref)))
+        check(serve_err <= 1e-5, f"{model} {mode}: served scores {serve_err} from the t = 1 run's")
+        emit(phase="sharded", model=model, embedding_mode=mode, backend=rec["backend"],
+             ranks=len(ranks), table_shards=2,
+             device=rec["device"], sharded_tables=sharded,
+             padded_tables={k: rec["table_padding"][k] for k in PADDED_TABLES},
+             replicated=replicated, steps=len(losses), max_loss_rel_diff=rel,
+             max_rank_loss_diff=rank_diff,
+             max_loss_abs_diff=float(np.max(np.abs(losses - want))),
+             eval_auc=auc, eval_auc_t1=auc1, launches_per_rank=launches,
+             launches_t1=one["launches"][kernel[model]], serve_max_abs_diff_vs_t1=serve_err,
+             epoch_seconds=ranks[0]["epoch_seconds"][0], epoch_seconds_t1=one["epoch_seconds"][0],
+             card=card)
+    return totals
+
+
 # -- phase 5 ------------------------------------------------------------------
 
 
@@ -1443,6 +1650,7 @@ def main(argv=None) -> int:
         train_and_serve_zoo(workdir, card)
         train_and_serve_multitask(workdir, card)
         file_launches, file_b1 = train_from_files(workdir, card)
+        sharded_launches = sharded_phase(workdir, card)
     file_err = check_din_on_file_data(file_b1)
     serve_din(gen, card)
     c2_launches = serve_c2_shapes(gen, card)
@@ -1464,14 +1672,16 @@ def main(argv=None) -> int:
         ("din_attention_fwd", ("din_attention_fwd", 1024),
          "rank_tpu_torch/ops/kernels/csrc/din_attention.cu",
          "rank_tpu/ops/pallas/din_attention.py:156",
-         din_launches + file_launches["din_attention_fwd"], max(din_err, file_err)),
+         din_launches + file_launches["din_attention_fwd"] + sharded_launches["din_attention_fwd"],
+         max(din_err, file_err)),
         # the generic B1 kernel, launched on slice 6's path (DIN at D = 12)
         ("din_attention_generic_fwd", ("din_attention_generic_fwd", "D12"),
          "rank_tpu_torch/ops/kernels/csrc/din_attention.cu",
          "rank_tpu/ops/pallas/din_attention.py:156",
          c2_launches["din_attention_generic_fwd"], din_c2_err["din_attention_generic_fwd"]),
         ("cin_layer_fwd", ("cin_layer_fwd/layer1", 1024), "rank_tpu_torch/ops/kernels/csrc/cin.cu",
-         "rank_tpu/ops/pallas/cin.py:140", cin_launches + file_launches["cin_layer_fwd"],
+         "rank_tpu/ops/pallas/cin.py:140",
+         cin_launches + file_launches["cin_layer_fwd"] + sharded_launches["cin_layer_fwd"],
          cin_err),
     ):
         # B = 1024: the batch of the training path; B2 at its heavier layer.

@@ -18,11 +18,22 @@ vocabulary file prints the names and exits 2. ``--init_from_reference``
 warm-starts dcn or deepcrossing from the original repo's
 ``best_model.pth`` (``interop.py``) before ``--resume``.
 
+On ranks (``python -m torch.distributed.run --nproc_per_node=N -m
+rank_tpu_torch.cli --table_parallelism=T ...``; ``WORLD_SIZE`` > 1 joins
+the process group, NCCL on cards, gloo on the CPU) the ranks form a
+(N/T x T) mesh (``parallel/mesh.py``). Each rank keeps its data index's
+strided shard of the rows (``shard_for_process`` by data index, so table
+peers see the same rows) and a per-rank batch of ``batch_size // d``; the
+streaming loaders run the step count all ranks agree on
+(``_agreed_steps``). ``--embedding_mode`` picks the lookup schedule of
+the sharded tables and ``--staged_shuffle`` the epoch shuffle
+(``train/staged.py``). Checkpoints are in the normal form and restore
+under any table parallelism (``_restore_normal_form``); rank 0 alone
+writes them, ``metrics_history.jsonl`` and ``predictions.csv``.
+
 Every flag whose path is not ported yet raises ``NotImplementedError``
 naming its ``ROADMAP.md`` item, rather than being ignored:
-``--table_parallelism`` > 1, an ``--embedding_mode`` other than ``gspmd``
-and ``--staged_shuffle=local`` (A13), ``--profile_dir`` and
-``--matmul_precision`` (A14).
+``--profile_dir`` and ``--matmul_precision`` (A14).
 
 Every model of the JAX registry runs, the multi-task ESMM, MMOE and PLE
 with every ``--task_weighting`` (sum, uncertainty, gradnorm, pcgrad;
@@ -40,12 +51,14 @@ import os
 import sys
 
 from .data.encode import encode_dataframe, load_npz
-from .data.loader import ArrayLoader, num_rows, split_train_test
+from .data.loader import ArrayLoader, num_rows, shard_for_process, split_train_test
 from .data.synthetic import make_synthetic_dataset
 from .features import WECHAT_SCHEMA, schema_from_vocab_dir
 from .models import DEFAULT_CONFIGS, default_config
+from .models.registry import resolve_device
+from .parallel.mesh import DATA_AXIS, init_distributed, is_writer, make_mesh
 from .train import CheckpointManager, TrainConfig, Trainer, export_predictions
-from .train.staged import StagedRunner
+from .train.staged import StagedRunner, _agreed_steps
 
 
 def _str2bool(v: str) -> bool:
@@ -123,7 +136,8 @@ def build_parser() -> argparse.ArgumentParser:
                    "step from it (train/staged.py); false streams numpy batches")
     p.add_argument("--staged_shuffle", choices=("global", "local"), default="global",
                    help="epoch shuffle on the staged path: one uniform "
-                   "permutation over all rows ('local' is not ported yet)")
+                   "permutation over all rows, or ('local') each data shard "
+                   "permutes its own rows, with no collective")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; 'cpu' runs the kernels' plain versions")
     return p
@@ -178,10 +192,6 @@ def model_config_from_args(args):
 def _refuse_unported(args) -> None:
     """Raise for every asked-for path the port does not have yet."""
     unported = [
-        (args.table_parallelism > 1, "--table_parallelism > 1 (ROADMAP A13)"),
-        (args.embedding_mode not in (None, "gspmd"),
-         f"--embedding_mode={args.embedding_mode} (ROADMAP A13)"),
-        (args.staged_shuffle == "local", "--staged_shuffle=local (ROADMAP A13)"),
         (args.profile_dir, "--profile_dir (ROADMAP A14)"),
         (args.matmul_precision, "--matmul_precision (ROADMAP A14)"),
     ]
@@ -196,6 +206,31 @@ def _load_split(path: str, schema, vocab_dir: str):
     import pandas as pd
 
     return encode_dataframe(pd.read_parquet(path), schema, vocab_dir)
+
+
+def _restore_normal_form(trainer, state, what, load):
+    """Restore a checkpoint tree (``load()``) saved in the depadded normal
+    form (tables at caller-schema vocab sizes, ``Trainer.depad_state``):
+    re-pad it for this run's mesh, keep this rank's shards and commit it.
+
+    A tree whose tables hold this mesh's padded rows predates the normal
+    form (rank_tpu's legacy table-sharded checkpoints,
+    ``rank_tpu/cli.py:197-220``): it is retried as padded, with the format
+    change named, and restores only under the same table parallelism."""
+    tree = load()
+    try:
+        return trainer.commit_state(state, trainer.repad_state(tree, like=state))
+    except ValueError as e:
+        if not trainer.table_padding:
+            raise
+        print(
+            f"[checkpoint] restoring {what} as the depadded normal form failed "
+            f"({type(e).__name__}: {e}); retrying with the padded template — "
+            "this checkpoint likely predates the depadded normal form "
+            "(tables saved WITH mesh padding). It only restores under the "
+            "same table_parallelism; re-save from this run to migrate."
+        )
+        return trainer.commit_state(state, trainer.repad_state(tree, like=state, legacy=True))
 
 
 def main(argv=None) -> int:
@@ -229,6 +264,15 @@ def main(argv=None) -> int:
         train_data = _load_split(args.train_data, schema, args.vocabulary_dir)
         eval_data = _load_split(args.eval_data, schema, args.vocabulary_dir)
 
+    device = resolve_device(args.device)
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        init_distributed(backend="gloo" if device.type == "cpu" else None)
+    mesh = make_mesh(table_parallelism=args.table_parallelism, device=device)
+    # table peers see the same rows: shard by data index, not by rank
+    d = mesh.shape[DATA_AXIS]
+    train_data = shard_for_process(train_data, mesh.data_index, d)
+    eval_data = shard_for_process(eval_data, mesh.data_index, d)
+
     train_cfg = TrainConfig(
         model_dir=args.model_dir,
         output_dir=args.output_dir,
@@ -237,34 +281,41 @@ def main(argv=None) -> int:
         learning_rate=args.learning_rate,
         save_checkpoints_steps=args.save_checkpoints_steps,
         label=args.label,
+        table_parallelism=args.table_parallelism,
         gradient_clip_norm=args.gradient_clip_norm,
     )
-    trainer = Trainer(schema, model_cfg, train_cfg, device=args.device)
-    bs = train_cfg.batch_size
-    runner = StagedRunner(trainer, train_data, eval_data, bs) if args.device_resident else None
+    trainer = Trainer(schema, model_cfg, train_cfg, device=mesh.device, mesh=mesh)
+    bs = max(train_cfg.batch_size // d, 1)  # this rank's rows a step
+    runner = (StagedRunner(trainer, train_data, eval_data, bs, shuffle_mode=args.staged_shuffle)
+              if args.device_resident else None)
     state = trainer.init_state()
     if args.init_from_reference:
         from .interop import import_reference_checkpoint
 
-        model = state["model"]
+        normal = trainer.depad_state(state)["model"]
         state_dict, report = import_reference_checkpoint(
-            args.init_from_reference, args.model, model.state_dict())
-        model.load_state_dict(state_dict)
+            args.init_from_reference, args.model, normal)
+        trainer.commit_state(state, trainer.repad_state({"model": state_dict}, like=state))
         print(f"warm-started {len(report)} tensors from {args.init_from_reference}")
     mgr = CheckpointManager(args.model_dir)
 
     start_epoch = 1
     best_auc = 0.0
     if args.resume and mgr.latest_epoch() is not None:
+        # checkpoints are in the normal form (caller-schema table rows):
+        # re-pad for this run's mesh and keep this rank's shards
         epoch = mgr.latest_epoch()
-        state, _ = mgr.restore_epoch(state, epoch)
+        state = _restore_normal_form(trainer, state, f"checkpoint_epoch_{epoch}",
+                                     lambda: mgr.load_epoch(epoch, trainer.device))
         start_epoch = epoch + 1
         best_auc = mgr.epoch_metrics(epoch).get("best_auc", 0.0)
         print(f"resumed from checkpoint_epoch_{epoch} (best_auc={best_auc:.4f})")
 
-    # streaming loaders keep the remainder batch (padded, with _valid)
-    train_batches = -(-num_rows(train_data) // bs)
-    eval_batches = -(-num_rows(eval_data) // bs)
+    # streaming loaders keep the remainder batch (padded, with _valid) and
+    # run the step count every rank agrees on, so unequal shards still run
+    # the same collective steps
+    train_batches = _agreed_steps(num_rows(train_data), bs, mesh)
+    eval_batches = _agreed_steps(num_rows(eval_data), bs, mesh)
 
     def run_eval(epoch):
         if runner is not None:
@@ -285,39 +336,43 @@ def main(argv=None) -> int:
             )
             state, train_stats = trainer.train_epoch(state, loader, epoch)
         stats = run_eval(epoch)
-        with open(history_path, "a") as f:
-            f.write(json.dumps({
-                "epoch": epoch,
-                "train_loss": train_stats["loss"],
-                "train_auc": train_stats["auc"],
-                "train_examples_per_s": train_stats["examples_per_s"],
-                "eval_loss": stats["loss"],
-                "eval_auc": stats["auc"],
-                "eval_task_aucs": stats["task_aucs"],
-            }) + "\n")
+        if is_writer():
+            with open(history_path, "a") as f:
+                f.write(json.dumps({
+                    "epoch": epoch,
+                    "train_loss": train_stats["loss"],
+                    "train_auc": train_stats["auc"],
+                    "train_examples_per_s": train_stats["examples_per_s"],
+                    "eval_loss": stats["loss"],
+                    "eval_auc": stats["auc"],
+                    "eval_task_aucs": stats["task_aucs"],
+                }) + "\n")
         if stats["auc"] > best_auc:
             best_auc = stats["auc"]
-            mgr.save_best(state)
+            mgr.save_best(trainer.depad_state(state))
             print(f"Model saved at epoch {epoch} with best AUC: {best_auc:.4f}")
         if epoch % args.save_checkpoints_steps == 0:
-            mgr.save_epoch(state, epoch, {"eval_auc": stats["auc"], "best_auc": best_auc})
+            mgr.save_epoch(trainer.depad_state(state), epoch,
+                           {"eval_auc": stats["auc"], "best_auc": best_auc})
 
     # reload the best model, export its predictions
     if mgr.has_best():
-        state = mgr.restore_best(state)
+        state = _restore_normal_form(trainer, state, "best_model",
+                                     lambda: {"model": mgr.load_best_state_dict(trainer.device)})
     stats = run_eval(args.num_epochs)
     primary = trainer.primary_head(stats["predictions"])
     # ESMM's primary head "ctr" predicts the first task's label
     label_col = (trainer.label_cols[primary] if primary in trainer.label_cols
                  else trainer.label_cols[model_cfg.tasks[0]])
     mask = stats["valid"] > 0
-    path = export_predictions(
-        args.output_dir,
-        stats["labels"][mask, label_col],
-        stats["predictions"][primary][mask],
-        label_name=args.label,
-    )
-    print(f"Predictions saved to {path}")
+    if is_writer():
+        path = export_predictions(
+            args.output_dir,
+            stats["labels"][mask, label_col],
+            stats["predictions"][primary][mask],
+            label_name=args.label,
+        )
+        print(f"Predictions saved to {path}")
     return 0
 
 

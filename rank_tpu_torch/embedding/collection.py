@@ -12,9 +12,22 @@ Tables are registered as ``table_<name>``, the flax module names, so the
 weight carry-over in ``interop.py`` maps keys mechanically. ``features``
 names the features a model looks up; only their tables are made, as flax
 creates only the tables a model calls (DCN's collection has no
-``table_feedid``). Only the plain gather (the JAX package's ``'gspmd'``
-mode) is ported; the explicit table-sharded schedules (``'psum'`` /
-``'alltoall'``) wait for the multi-device slice.
+``table_feedid``).
+
+``mode`` names the lookup schedule on a table-sharded mesh, as in the JAX
+package (``collection.py:70-127``). Without a mesh, or for a table the
+trainer leaves unsharded, every mode is the plain gather. On a
+table-sharded mesh (``embedding/sharded.py``; ``Trainer`` shards the
+tables through ``build_model(..., mesh=, sharded_tables=)``):
+
+  * ``'psum'`` and ``'alltoall'`` run those explicit schedules for the
+    collection's sharded tables, as JAX's ``shard_map`` does;
+  * ``'gspmd'``: JAX's compiler shards every table leaf that the trainer's
+    ``_pick`` marks and inserts the collectives. The port has no compiler
+    to insert them, so ``'gspmd'`` runs the ``'psum'`` schedule for every
+    table that rule shards. It gives the same values. The FM family's and
+    ``uniform_tables``' tables (``models/base.py``), which JAX leaves to
+    GSPMD under every mode, take the same ``'psum'`` schedule.
 """
 
 from __future__ import annotations
@@ -25,6 +38,7 @@ import torch
 from torch import nn
 
 from ..features import FeatureSchema
+from .sharded import MODES, TableEmbedding
 
 
 def table_specs(schema: FeatureSchema) -> Dict[str, Tuple[int, int]]:
@@ -52,7 +66,10 @@ INITIALIZERS: Dict[str, Callable[[torch.Tensor, Optional[torch.Generator]], torc
 
 
 class EmbeddingCollection(nn.Module):
-    """Owns one table per (non-shared) categorical/sequence feature."""
+    """Owns one table per (non-shared) categorical/sequence feature. Where
+    JAX's collection holds ``mesh`` and ``sharded`` for its lookup, the
+    port's tables carry their own shard and mesh (``TableEmbedding``): the
+    lookup is the table's, with the schedule ``mode`` gave it."""
 
     def __init__(
         self,
@@ -63,11 +80,9 @@ class EmbeddingCollection(nn.Module):
         features: Optional[Sequence[str]] = None,
     ):
         super().__init__()
-        if mode != "gspmd":
-            raise NotImplementedError(
-                f"embedding mode {mode!r} is not ported yet; only 'gspmd' "
-                "(the plain gather) is"
-            )
+        if mode not in MODES:
+            raise ValueError(f"embedding mode {mode!r}: one of {MODES}")
+        self.mode = mode
         init = INITIALIZERS[init_name]
         self._owners = {
             f.name: f.shares_table_with or f.name
@@ -78,9 +93,8 @@ class EmbeddingCollection(nn.Module):
             if wanted is not None and name not in wanted:
                 continue
             weight = init(torch.empty(vocab, dim), generator)
-            self.add_module(
-                f"table_{name}", nn.Embedding.from_pretrained(weight, freeze=False)
-            )
+            schedule = "alltoall" if mode == "alltoall" else "psum"
+            self.add_module(f"table_{name}", TableEmbedding.create(weight, name, schedule))
 
     def lookup(self, name: str, ids: torch.Tensor) -> torch.Tensor:
         """ids (B,) or (B, T) -> embeddings (B, D) / (B, T, D)."""

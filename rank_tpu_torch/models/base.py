@@ -17,6 +17,7 @@ import torch
 from torch import nn
 
 from ..embedding.collection import INITIALIZERS, EmbeddingCollection
+from ..embedding.sharded import TableEmbedding
 from ..features import FeatureSchema
 from ..ops.mlp import dense_layer
 
@@ -109,7 +110,8 @@ class ModelConfig:
     multihot_tags: bool = True
     # sequence feature used by DIN/BST/DIEN
     seq_feature: str = "his_read_comment_7d_seq"
-    # embedding lookup schedule; the port has the plain gather only
+    # embedding lookup schedule on a table-sharded mesh: gspmd | psum |
+    # alltoall (embedding/collection.py)
     embedding_mode: str = "gspmd"
     # DIN attention and xDeepFM's CIN: 'auto' runs the CUDA kernel on the
     # card and the plain version on the CPU; 'pallas' asks for the kernel,
@@ -154,17 +156,17 @@ class RankModel(nn.Module):
         dim: int,
         prefix: str,
         generator: Optional[torch.Generator],
-    ) -> Dict[str, nn.Embedding]:
+    ) -> Dict[str, TableEmbedding]:
         """One table of width ``dim`` per field (FM-family models), drawn
         with ``cfg.embedding_init`` and registered as ``{prefix}_{field}``,
-        the flax module name."""
+        the flax module name. On a table-sharded mesh they look up through
+        the ``'psum'`` schedule under every ``embedding_mode``, as JAX
+        leaves them to GSPMD (``embedding/collection.py``)."""
         init = INITIALIZERS[self.cfg.embedding_init]
         tables = {}
         for name in fields:
             vocab = self.schema.categorical_feature(name).vocab_size
-            table = nn.Embedding.from_pretrained(
-                init(torch.empty(vocab, dim), generator), freeze=False
-            )
+            table = TableEmbedding.create(init(torch.empty(vocab, dim), generator), name)
             self.add_module(f"{prefix}_{name}", table)
             tables[name] = table
         return tables

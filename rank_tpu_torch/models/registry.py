@@ -8,11 +8,14 @@ ESMM, MMOE and PLE (``MULTI_TASK_MODELS``).
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Type
+from typing import Dict, Optional, Sequence, Type
 
 import torch
 
+from ..embedding.sharded import shard_tables_
 from ..features import FeatureSchema
+from ..ops.activations import BatchNorm
+from ..parallel.mesh import DATA_AXIS, Mesh
 from .base import ModelConfig, RankModel
 from .cross_family import DCN, AutoInt, DeepCrossing, FiBiNet, XDeepFM
 from .fm_family import AFM, FFM, FLEN, PNN, DeepFM, FwFM, WideDeep
@@ -93,9 +96,18 @@ def build_model(
     cfg: ModelConfig,
     device="cuda",
     generator: Optional[torch.Generator] = None,
+    mesh: Optional[Mesh] = None,
+    sharded_tables: Sequence[str] = (),
 ) -> RankModel:
     """Build ``cfg.name`` with weights drawn from ``generator`` (seed 0 when
-    None) on the CPU, then move it to ``device``."""
+    None) on the CPU, then move it to ``device``.
+
+    On a ``mesh``, every table of a feature in ``sharded_tables`` is padded
+    with zero rows to a multiple of the table axis and keeps this rank's
+    rows (``embedding/sharded.py:shard_tables_``), after the whole model is
+    drawn: a table-sharded model starts from the weights of the unsharded
+    one. With more than one data rank, BatchNorm takes its statistics over
+    the global batch (``ops/activations.py``)."""
     device = resolve_device(device)
     if cfg.name not in MODEL_CLASSES:
         raise ValueError(
@@ -103,4 +115,11 @@ def build_model(
         )
     if generator is None:
         generator = torch.Generator().manual_seed(0)
-    return MODEL_CLASSES[cfg.name](schema, cfg, generator=generator).to(device)
+    model = MODEL_CLASSES[cfg.name](schema, cfg, generator=generator)
+    if mesh is not None:
+        shard_tables_(model, mesh, sharded_tables)
+        if mesh.shape[DATA_AXIS] > 1:
+            for module in model.modules():
+                if isinstance(module, BatchNorm):
+                    module.mesh = mesh
+    return model.to(device)

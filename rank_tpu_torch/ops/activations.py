@@ -19,6 +19,8 @@ import functools
 import torch
 from torch import nn
 
+from ..parallel.mesh import DATA_AXIS
+
 
 class BatchNorm(nn.BatchNorm1d):
     """BatchNorm over (N, C) that trains as flax's ``nn.BatchNorm`` does.
@@ -33,10 +35,20 @@ class BatchNorm(nn.BatchNorm1d):
     keys are torch's (``weight``, ``bias``, ``running_mean``,
     ``running_var``, ``num_batches_tracked``), so ``interop.py`` maps them.
 
+    With ``mesh`` set (``build_model`` on a mesh of more than one data
+    rank) train mode takes the statistics over the global batch, as flax's
+    BatchNorm does under GSPMD: the sum, the sum of squares and the row
+    count are all-reduced over the data group by a differentiable
+    all-reduce whose backward all-reduces too, since every data rank's
+    loss depends on every rank's rows. The running statistics are then
+    equal on every rank.
+
     Dtypes follow flax's ``_normalize``: under bf16 parameters (the bf16
     serving ``Predictor``) the statistics stay f32, the arithmetic runs in
     f32 and the output takes the dtype that x, scale and bias promote to.
     """
+
+    mesh = None
 
     def __init__(self, num_features: int, eps: float = 1e-5, decay: float = 0.99,
                  affine: bool = True):
@@ -51,8 +63,16 @@ class BatchNorm(nn.BatchNorm1d):
                 *(_f32(t) for t in (x, self.running_mean, self.running_var, self.weight,
                                     self.bias)), False, 0.0, self.eps)
             return y if y.dtype == out else y.to(out)
-        mean = x.mean(dim=0)
-        var = torch.clamp_min((x * x).mean(dim=0) - mean * mean, 0.0)
+        if self.mesh is None:
+            mean = x.mean(dim=0)
+            var = torch.clamp_min((x * x).mean(dim=0) - mean * mean, 0.0)
+        else:
+            c = x.shape[1]
+            sums = _SumOverData.apply(
+                torch.cat([x.sum(dim=0), (x * x).sum(dim=0), x.new_full((1,), x.shape[0])]),
+                self.mesh)
+            mean = sums[:c] / sums[-1]
+            var = torch.clamp_min(sums[c:2 * c] / sums[-1] - mean * mean, 0.0)
         with torch.no_grad():
             self.running_mean.mul_(self.decay).add_(mean.detach(), alpha=1.0 - self.decay)
             self.running_var.mul_(self.decay).add_(var.detach(), alpha=1.0 - self.decay)
@@ -62,6 +82,20 @@ class BatchNorm(nn.BatchNorm1d):
             mul = mul * self.weight
         y = (x - mean) * mul
         return y + self.bias if self.affine else y
+
+
+class _SumOverData(torch.autograd.Function):
+    """All-reduce over the data group, differentiable: the backward
+    all-reduces the cotangent too (``BatchNorm``'s doc)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, mesh):
+        ctx.mesh = mesh
+        return mesh.all_reduce_(x.clone(), DATA_AXIS)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.mesh.all_reduce_(grad.clone(), DATA_AXIS), None
 
 
 def _f32(t):

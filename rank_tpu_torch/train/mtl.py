@@ -92,14 +92,23 @@ def shared_param_mask(names: Iterable[str],
     return {name: not is_task_specific(tuple(name.split("."))) for name in names}
 
 
-def shared_grad_norms(stacked: Stacked, shared_mask: Mapping[str, bool]) -> torch.Tensor:
-    """n_i = |grad_shared L_i| per task, over the shared parameters."""
+def shared_grad_squares(stacked: Stacked, shared_mask: Mapping[str, bool]) -> torch.Tensor:
+    """|grad_shared L_i|^2 per task, over the shared parameters of ``stacked``."""
     first = next(iter(stacked.values()))
     total = torch.zeros(first.shape[0], device=first.device)
     for name, g in stacked.items():
         if shared_mask[name]:
             total = total + g.reshape(g.shape[0], -1).float().square().sum(dim=1)
-    return torch.sqrt(torch.clamp_min(total, _EPS))
+    return total
+
+
+def norms_from_squares(squares: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(torch.clamp_min(squares, _EPS))
+
+
+def shared_grad_norms(stacked: Stacked, shared_mask: Mapping[str, bool]) -> torch.Tensor:
+    """n_i = |grad_shared L_i| per task, over the shared parameters."""
+    return norms_from_squares(shared_grad_squares(stacked, shared_mask))
 
 
 def gradnorm_init(num_tasks: int, device=None) -> Dict[str, torch.Tensor]:

@@ -312,11 +312,9 @@ def test_cli_synthetic_calibrated_wins_over_synthetic(tmp_path, monkeypatch):
     np.testing.assert_array_equal(preds.iloc[:, 0], test["labels"][:, 0])
 
 
-@pytest.mark.parametrize("flag", ["--table_parallelism=2", "--embedding_mode=psum",
-                                  "--staged_shuffle=local", "--profile_dir=trace",
-                                  "--matmul_precision=highest"])
+@pytest.mark.parametrize("flag", ["--profile_dir=trace", "--matmul_precision=highest"])
 def test_cli_file_run_refuses_unported_flags(etl_out, tmp_path, flag):
-    """The A13 and A14 flags still raise on the file path, before any data loads."""
+    """The A14 flags still raise on the file path, before any data loads."""
     with pytest.raises(NotImplementedError, match="not ported"):
         main(["--model=din", "--device=cpu", f"--model_dir={tmp_path}/m",
               f"--output_dir={tmp_path}/o", *_file_flags(etl_out, "parquet"), flag])

@@ -193,14 +193,20 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 
 def test_unported_model_and_model_dir_raise(tmp_path):
-    """A model asked for with a path not ported yet (the table-sharded
-    ``psum`` embedding lookup) raises; ``model_dir`` serves the saved best
-    model (it raised before the checkpoint port) and a directory without
-    one raises."""
+    """The ``psum`` embedding mode, which raised before the table-sharded
+    slice, is the plain gather without a mesh: it equals ``gspmd``, as in
+    the JAX collection. ``model_dir`` serves the saved best model (it
+    raised before the checkpoint port) and a directory without one raises."""
     from rank_tpu_torch.train import CheckpointManager
 
-    with pytest.raises(NotImplementedError, match="not ported"):
-        build_model(tiny_schema(), default_config("din", embedding_mode="psum"), device="cpu")
+    batch = {k: torch.from_numpy(v)
+             for k, v in make_synthetic_dataset(tiny_schema(), num_rows=6).items()}
+    outs = []
+    for mode in ("gspmd", "psum"):
+        model = build_model(tiny_schema(), default_config("din", embedding_mode=mode),
+                            device="cpu", generator=torch.Generator().manual_seed(5)).eval()
+        outs.append(model(batch)["logits"])
+    torch.testing.assert_close(outs[0], outs[1], rtol=0, atol=0)
     schema, cfg = tiny_schema(), default_config("din", hidden_units=(8,))
     model = build_model(schema, cfg, device="cpu", generator=torch.Generator().manual_seed(3))
     CheckpointManager(str(tmp_path / "ckpt")).save_best({"model": model})
@@ -226,7 +232,8 @@ def test_port_imports_nothing_of_jax():
     assert len(files) > 10
     names = {str(p.relative_to(ROOT)) for p in files}
     assert {"rank_tpu_torch/native/__init__.py", "rank_tpu_torch/data/calibrated.py",
-            "rank_tpu_torch/data/etl.py"} <= names
+            "rank_tpu_torch/data/etl.py", "rank_tpu_torch/parallel/mesh.py",
+            "rank_tpu_torch/embedding/sharded.py"} <= names
     for path in files:
         for module in _imported_modules(path):
             top = module.split(".")[0]
@@ -242,7 +249,9 @@ def test_port_imports_nothing_of_jax():
         "rank_tpu_torch.models.cross_family, rank_tpu_torch.models.sequence, "
         "rank_tpu_torch.models.multitask, rank_tpu_torch.train.mtl, rank_tpu_torch.serve, "
         "rank_tpu_torch.ops.kernels, rank_tpu_torch.native, rank_tpu_torch.data.encode, "
-        "rank_tpu_torch.data.etl, rank_tpu_torch.data.calibrated, rank_tpu_torch.data.douban; "
+        "rank_tpu_torch.data.etl, rank_tpu_torch.data.calibrated, rank_tpu_torch.data.douban, "
+        "rank_tpu_torch.parallel, rank_tpu_torch.parallel.mesh, "
+        "rank_tpu_torch.embedding.sharded, rank_tpu_torch.train.staged; "
         "new = {m.split('.')[0] for m in set(sys.modules) - before}; "
         "assert not new & {'jax', 'flax', 'rank_tpu'}, new"
     )

@@ -381,9 +381,6 @@ def test_cli_error_paths(tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--model=din", "--table_parallelism=2"],
-    ["--model=din", "--embedding_mode=psum"],
-    ["--model=din", "--staged_shuffle=local"],
     ["--model=din", "--profile_dir=trace"],
     ["--model=din", "--matmul_precision=highest"],
 ])
