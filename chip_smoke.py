@@ -118,6 +118,25 @@ Phases; any failure raises and the script exits non-zero:
         one rank must match the one-rank run's to 1e-5 on 1000 rows. One
         ``sharded`` line a run (backend, the epoch time beside the
         one-rank time);
+     i. the measurement tools (slice 9), full width on ``WECHAT_SCHEMA``:
+        ``cli.main`` trains xDeepFM and DIN (50,000 rows, 1 epoch) with
+        ``--profile_dir``: the one chrome trace must parse and hold B2's or
+        B1's device events with durations, as many as the wrapper counted
+        in epoch 1 (``profile_trace`` lines, with the device-busy share);
+        a 1024^2 f32 product under each ``--matmul_precision`` against f64
+        tells the arithmetic cuBLAS ran, which must be the one whose peak
+        the roofline divides by; xDeepFM (200,000 rows, 1 epoch) under
+        each setting, in one spawned process in torch's deterministic
+        mode: ``float32`` and ``highest`` give the default run's losses
+        bit for bit, ``bfloat16`` a finite loss and eval AUC over 0.6, and
+        each leaves the process's setting as it was (``matmul_precision``
+        lines); ``roofline`` lines for xDeepFM, DIN and DCN at batch 1024
+        (``step_costs``, 20 synchronised steps after a warm-up, the top 8
+        byte buckets): the kernels' FLOP formulas must be in the count and
+        no share may pass 100%; ``step_memory`` lines for xDeepFM and DIN
+        (``StagedRunner.step_memory_analysis`` beside
+        ``max_memory_allocated``): each value at least 0 and under 80 GB,
+        the state unchanged;
   5. times on the card: each kernel, its plain version (no yardstick of
      speed: it repeats the kernel's arithmetic in unfused torch ops), the
      one PyTorch call that computes the same function where there is one
@@ -137,7 +156,7 @@ Phases; any failure raises and the script exits non-zero:
 
 Then it prints one line ``{"kernels": [...]}`` (a row for each kernel
 variant, with the C2 shapes it ran; the launches include phase 4h's, every
-rank's), the card's line and, last,
+rank's, and phase 4i's), the card's line and, last,
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -145,6 +164,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import ctypes
 import dataclasses
 import json
@@ -159,11 +179,13 @@ import time
 
 import numpy as np
 import torch
+from torch.utils.flop_counter import FlopCounterMode
 
 from rank_tpu_torch import (WECHAT_SCHEMA, Predictor, build_model, default_config,
                             export_serving_artifact, load_serving_artifact)
 from rank_tpu_torch import cli, native
 from rank_tpu_torch.data import calibrated
+from rank_tpu_torch.data.loader import split_train_test
 from rank_tpu_torch.data.synthetic import make_synthetic_dataset
 from rank_tpu_torch.features import schema_from_vocab_dir
 from rank_tpu_torch.ops.cin import xavier_uniform_
@@ -171,6 +193,14 @@ from rank_tpu_torch.ops.kernels import _build
 from rank_tpu_torch.ops.kernels import cin as cin_kernels
 from rank_tpu_torch.ops.kernels import din_attention as din_kernels
 from rank_tpu_torch.train import TrainConfig, Trainer
+from rank_tpu_torch.train import loop as train_loop
+from rank_tpu_torch.train.staged import StagedRunner
+from rank_tpu_torch.utils import op_bytes, roofline
+# Published H100 SXM peaks (NVIDIA data sheet, dense): f32 outside the
+# tensor cores, TF32 on the tensor cores, and HBM3. The bounds are stated
+# against them.
+from rank_tpu_torch.utils.roofline import (H100_HBM_BYTES, H100_PEAK_F32_FLOPS, H100_PEAK_HBM,
+                                           H100_PEAK_TF32_FLOPS)
 
 SEED = 0
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -204,12 +234,18 @@ FILE_SERVE_ROWS = 1000
 # bar of tests/test_torch_zoo_forward.py (BF16_BAR)
 BF16_PROB_ATOL = 0.05
 F32_TRANSFORMER = dict(transformer_dtype="float32", transformer_score_dtype="float32")
-# Published H100 SXM peaks (NVIDIA data sheet, dense): f32 outside the
-# tensor cores, TF32 on the tensor cores, and HBM3. The bounds are stated
-# against them.
-PEAK_F32_FLOPS = 67e12
-PEAK_TF32_FLOPS = 495e12
-PEAK_HBM_BYTES = 3.35e12
+# phase 4i: the measurement tools. The profiled runs take phase 4h's
+# rows; the precision runs the xDeepFM training path's; the roofline and
+# memory steps the training batch (1024) at full width.
+PRECISIONS = (None, "bfloat16", "float32", "highest")
+ROOFLINE_MODELS = ("xdeepfm", "din", "dcn")
+ROOFLINE_STEPS = 20
+PROFILED_KERNELS = {"xdeepfm": ("cin_layer_fwd", "cin_layer_fwd_kernel"),
+                    "din": ("din_attention_fwd", "din_attention_fwd_kernel")}
+# a 1024^2 f32 product's relative error against f64, which tells the
+# arithmetic cuBLAS ran: f32 about 1e-7, TF32 (10-bit mantissa) 4e-4 to
+# 8e-4, bf16 (7-bit) 3e-3 to 7e-3
+ARITHMETIC_BY_ERROR = ((1e-5, "float32"), (1.6e-3, "tf32"), (float("inf"), "bfloat16"))
 # The kernels' B values at the main paths' shapes, and the lengths around
 # B1's 16-row tiles that every B1 check holds.
 TIMED_B = (256, 1024, 8192)
@@ -268,17 +304,17 @@ def check(ok, message: str) -> None:
 def bound(flops: float, nbytes: float):
     """(ms, 'bytes' | 'operations'): the larger of the two least times, in
     f32 outside the tensor cores."""
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    t_ops, t_bytes = flops / H100_PEAK_F32_FLOPS * 1e3, nbytes / H100_PEAK_HBM * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def bound_tc(product_flops: float, f32_flops: float, nbytes: float,
-             tf32_flops: float = PEAK_TF32_FLOPS) -> float:
+             tf32_flops: float = H100_PEAK_TF32_FLOPS) -> float:
     """The least time through the tensor cores in 3xTF32, ms: three TF32
     products for each product FLOP at ``tf32_flops``, the rest in f32, or
     the bytes, whichever is longer."""
-    t_ops = (3 * product_flops / tf32_flops + f32_flops / PEAK_F32_FLOPS) * 1e3
-    return max(t_ops, nbytes / PEAK_HBM_BYTES * 1e3)
+    t_ops = (3 * product_flops / tf32_flops + f32_flops / H100_PEAK_F32_FLOPS) * 1e3
+    return max(t_ops, nbytes / H100_PEAK_HBM * 1e3)
 
 
 def bounds(f32_flops: float, product_flops: float, rest_flops: float, nbytes: float,
@@ -1253,6 +1289,15 @@ def time_file_lengths(file_b1, card: str, mma_sync_tflops: float) -> None:
 # -- phase 4h: the table-sharded path on ranks ----------------------------------
 
 
+def deterministic_mode() -> None:
+    """torch's deterministic algorithms and f32 products, in a spawned child
+    before cuBLAS starts."""
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
 def sharded_rank(rank: int, world: int, store: str, backend: str, argv, out_path: str) -> None:
     """One rank of the ``sharded`` phase, spawned: ``cli.main(argv)`` in a
     process group of ``world`` ranks (none for one rank), recording every
@@ -1265,10 +1310,7 @@ def sharded_rank(rank: int, world: int, store: str, backend: str, argv, out_path
     in no fixed order, so two one-rank runs differ by rounding that Adam
     turns into steps of +-lr, which the phase's bars (losses to rtol 2e-4,
     served scores to 1e-5) would read as the sharded path's error."""
-    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"  # before cuBLAS starts
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    deterministic_mode()
     from rank_tpu_torch.parallel import init_distributed
     from rank_tpu_torch.train import loop
 
@@ -1429,6 +1471,284 @@ def sharded_phase(workdir: str, card: str) -> dict:
              card=card)
     return totals
 
+
+# -- phase 4i: the measurement tools ---------------------------------------------
+
+
+@contextlib.contextmanager
+def epoch_one_launches():
+    """Yields a dict that holds, after the block, each kernel's launches
+    in the training of epoch 1 (``Trainer.train_epoch``), the profiled span."""
+    counts = {}
+    epoch = train_loop.Trainer.train_epoch
+
+    def train_epoch(self, state, batches, epoch_number=1):
+        before = kernel_launches()
+        out = epoch(self, state, batches, epoch_number)
+        if epoch_number == 1:
+            counts.update({k: n - before[k] for k, n in kernel_launches().items()})
+        return out
+
+    train_loop.Trainer.train_epoch = train_epoch
+    try:
+        yield counts
+    finally:
+        train_loop.Trainer.train_epoch = epoch
+
+
+def device_busy(events) -> float:
+    """The share of a chrome trace's span in which the card ran a kernel,
+    a copy or a memset: the union of those events over the span of all."""
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    timed = [e for e in events if "ts" in e and "dur" in e]
+    first = min(e["ts"] for e in timed)
+    last = max(e["ts"] + e["dur"] for e in timed)
+    busy, end = 0.0, first
+    for a, b in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return busy / (last - first)
+
+
+def profile_traces(workdir: str, card: str) -> dict:
+    """``cli.main`` with ``--profile_dir`` for xDeepFM and DIN: one trace,
+    holding the kernel's device events, as many as the wrapper counted in
+    epoch 1, each with a duration. Returns the runs' launches."""
+    totals = {"cin_layer_fwd": 0, "din_attention_fwd": 0}
+    for model, (counter, kernel) in PROFILED_KERNELS.items():
+        trace_dir = os.path.join(workdir, f"trace_{model}")
+        with epoch_one_launches() as epoch1:
+            _, _, launches = run_cli(model, SHARDED_ROWS, 1, workdir, card,
+                                     run=f"{model}-profile", extra=[f"--profile_dir={trace_dir}"])
+        for k in totals:
+            totals[k] += launches[k]
+        check(os.listdir(trace_dir) == ["trace_rank0.json"],
+              f"{model}: the profile dir holds {os.listdir(trace_dir)}")
+        path = os.path.join(trace_dir, "trace_rank0.json")
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        launched = [e for e in events if e.get("cat") == "kernel" and kernel in e["name"]]
+        durations = [e["dur"] for e in launched]
+        check(len(launched) == epoch1[counter] > 0,
+              f"{model}: {len(launched)} {kernel} events in the trace, {epoch1[counter]} launches")
+        check(min(durations) > 0, f"{model}: a {kernel} event without a duration")
+        emit(phase="profile_trace", model=model, rows=SHARDED_ROWS, kernel=kernel,
+             device_events=len(launched), epoch1_launches=epoch1[counter],
+             kernel_us_median=statistics.median(durations), trace_mb=os.path.getsize(path) / 1e6,
+             device_busy_share=device_busy(events), card=card)
+    return totals
+
+
+def precision_child(argvs, out_path: str) -> None:
+    """Spawned: ``cli.main`` once for each of ``argvs`` in torch's
+    deterministic mode (as ``sharded_rank``), recording each run's train
+    step losses, the process's matmul precision before and after it and
+    its kernel launches."""
+    deterministic_mode()
+    from rank_tpu_torch.train import loop
+
+    runs = []
+    step = loop.Trainer.train_step
+
+    def train_step(self, state, meters, batch):
+        before = float(meters["loss"])
+        step(self, state, meters, batch)
+        runs[-1]["losses"].append(float(meters["loss"]) - before)
+
+    loop.Trainer.train_step = train_step
+    for argv in argvs:
+        runs.append({"losses": [], "precision_before": torch.get_float32_matmul_precision()})
+        zero_launches()
+        runs[-1]["rc"] = cli.main(list(argv))
+        runs[-1]["precision_after"] = torch.get_float32_matmul_precision()
+        runs[-1]["launches"] = kernel_launches()
+    with open(out_path, "w") as f:
+        json.dump(runs, f)
+
+
+def product_arithmetic(card: str) -> None:
+    """A 1024^2 f32 product under each precision setting against f64, and
+    the arithmetic its error tells: the roofline's peak for each setting
+    must be that arithmetic's."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    a, b = (torch.randn(1024, 1024, device="cuda", generator=gen) for _ in range(2))
+    exact = a.double() @ b.double()
+    for precision in PRECISIONS:
+        with train_loop.matmul_precision_scope(precision):
+            got = a @ b
+        err = float((got.double() - exact).norm() / exact.norm())
+        arithmetic = next(name for bar, name in ARITHMETIC_BY_ERROR if err < bar)
+        emit(phase="matmul_precision_error", matmul_precision=precision, rel_err_vs_f64=err,
+             arithmetic=arithmetic, roofline_peak_tflops=roofline.peak_flops(precision) / 1e12,
+             card=card)
+        check(arithmetic == roofline.PRODUCT_ARITHMETIC[precision],
+              f"under {precision} cuBLAS ran {arithmetic}; the roofline assumes "
+              f"{roofline.PRODUCT_ARITHMETIC[precision]}")
+
+
+def precision_runs(workdir: str, card: str) -> dict:
+    """xDeepFM trained once under each setting of ``--matmul_precision`` in
+    one spawned process: float32 and highest give the default run's losses
+    bit for bit, bfloat16 a finite loss and eval AUC over 0.6, and each run
+    leaves the process's setting as it found it. Returns the launches."""
+    product_arithmetic(card)
+    argvs, dirs = [], []
+    for precision in PRECISIONS:
+        run_dir = os.path.join(workdir, "precision", str(precision))
+        dirs.append(run_dir)
+        argvs.append(["--model=xdeepfm", f"--synthetic={XDEEPFM_ROWS}", "--num_epochs=1",
+                      f"--model_dir={run_dir}/model_dir", f"--output_dir={run_dir}/output_dir",
+                      *([f"--matmul_precision={precision}"] if precision else [])])
+    out_path = os.path.join(workdir, "precision.json")
+    proc = torch.multiprocessing.get_context("spawn").Process(target=precision_child,
+                                                              args=(argvs, out_path))
+    t0 = time.perf_counter()
+    proc.start()
+    proc.join(600)
+    if proc.is_alive():
+        proc.kill()
+        proc.join(30)
+    check(proc.exitcode == 0, f"the precision runs exited {proc.exitcode}")
+    with open(out_path) as f:
+        runs = json.load(f)
+    default = np.asarray(runs[0]["losses"])
+    launches = {"cin_layer_fwd": 0, "din_attention_fwd": 0}
+    for precision, run, run_dir in zip(PRECISIONS, runs, dirs):
+        losses = np.asarray(run["losses"])
+        (h,) = read_history(os.path.join(run_dir, "output_dir"))
+        check(run["rc"] == 0 and run["launches"]["cin_layer_fwd"] > 0,
+              f"{precision}: rc {run['rc']}, launches {run['launches']}")
+        check(run["precision_after"] == run["precision_before"],
+              f"{precision}: the precision went {run['precision_before']} -> "
+              f"{run['precision_after']}")
+        check(np.all(np.isfinite(losses)), f"{precision}: non-finite losses")
+        if precision in ("float32", "highest"):
+            check(np.array_equal(losses, default),
+                  f"{precision}: losses differ from the default run's by "
+                  f"{np.max(np.abs(losses - default))}")
+        if precision == "bfloat16":
+            check(h["eval_auc"] > 0.6, f"bfloat16: eval AUC {h['eval_auc']}")
+        for k in launches:
+            launches[k] += run["launches"][k]
+        emit(phase="matmul_precision", model="xdeepfm", rows=XDEEPFM_ROWS,
+             matmul_precision=precision, steps=len(losses), mean_loss=float(losses.mean()),
+             max_abs_loss_diff_vs_default=float(np.max(np.abs(losses - default))),
+             eval_auc=h["eval_auc"], train_examples_per_s=h["train_examples_per_s"],
+             precision_before=run["precision_before"], precision_after=run["precision_after"],
+             launches=run["launches"]["cin_layer_fwd"], card=card)
+    emit(phase="matmul_precision_seconds", seconds=time.perf_counter() - t0)
+    return launches
+
+
+def formula_flops(model: str, trainer, state, batch):
+    """(the FLOPs ``FlopCounterMode`` gives the model's kernel operator in one
+    train step, the formula's at the model's shapes), or None for a model
+    without one. Counted on a restored step (``Trainer.restoring``)."""
+    net = state["model"]
+    b = batch["labels"].shape[0]
+    if model == "xdeepfm":
+        op, d = torch.ops.rank_tpu_torch.cin_layer_t, trainer.model_cfg.embedding_dim
+        want = sum(2 * b * d * w.numel() for name, w in net.cin.named_parameters())
+    elif model == "din":
+        op = torch.ops.rank_tpu_torch.din_attention
+        t = batch[trainer.model_cfg.seq_feature].shape[1]
+        (four_d, h1), (_, h2) = net.attention.w1.shape, net.attention.w2.shape
+        want = 2 * b * t * (four_d * h1 + h1 * h2 + h2) + 2 * b * t * (four_d // 4)
+    else:
+        return None
+    with trainer.restoring(state), FlopCounterMode(display=False) as counter:
+        trainer.train_step(state, trainer.meters_init(), batch)
+    return counter.get_flop_counts()["Global"].get(op, 0), want
+
+
+def roofline_lines(card: str) -> None:
+    """Each of ``ROOFLINE_MODELS`` at batch 1024, full width: FLOPs and bytes
+    a step (``step_costs``), steady examples/s over ``ROOFLINE_STEPS``
+    synchronised steps after a warm-up, the roofline at the H100's peaks
+    and the top 8 byte buckets. The kernels' formulas must be in the count
+    and no share may pass 100%."""
+    for model in ROOFLINE_MODELS:
+        trainer = Trainer(WECHAT_SCHEMA, default_config(model), TrainConfig(log_every=0))
+        state = trainer.init_state()
+        data = make_synthetic_dataset(WECHAT_SCHEMA, num_rows=1024, seed=SEED + 3)
+        data["_valid"] = np.ones(1024, np.float32)
+        batch = trainer.to_device(data)
+        meters = trainer.meters_init()
+        for _ in range(5):
+            trainer.train_step(state, meters, batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(ROOFLINE_STEPS):
+            trainer.train_step(state, meters, batch)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        examples_per_s = ROOFLINE_STEPS * 1024 / seconds
+        costs = roofline.step_costs(trainer, state, batch)
+        check(costs is not None, f"{model}: no product FLOPs counted")
+        line = roofline.roofline(costs["flops"] / 1024, costs["bytes"] / 1024, examples_per_s)
+        kernel = formula_flops(model, trainer, state, batch)
+        if kernel is not None:
+            check(kernel[0] == kernel[1] > 0,
+                  f"{model}: the counter gave the kernel operator {kernel[0]} FLOPs, "
+                  f"its formula {kernel[1]}")
+            check(costs["flops"] > kernel[0], f"{model}: the step's FLOPs miss the kernel's")
+        shares = {k: line[k] for k in ("mfu_pct", "hbm_bw_pct", "pct_of_roofline")}
+        check(all(v is not None and 0 <= v <= 100 for v in shares.values()),
+              f"{model}: a share outside [0, 100]: {shares}")
+        buckets = op_bytes.grouped(op_bytes.step_rows(trainer, state, batch), top=8)
+        emit(phase="roofline", model=model, batch=1024, steps=ROOFLINE_STEPS,
+             step_ms=seconds / ROOFLINE_STEPS * 1e3, examples_per_s=examples_per_s,
+             flops_per_step=costs["flops"], bytes_per_step=costs["bytes"],
+             kernel_flops_per_step=kernel and kernel[0], **line,
+             top_bytes_per_step=dict(buckets), card=card)
+
+
+def _tree_bytes(state) -> dict:
+    """The model's, the optimizer's and the generators' state as bytes."""
+    tree = {"model": state["model"].state_dict(), "optimizer": state["optimizer"].state_dict(),
+            "step": state["step"], "rng": torch.get_rng_state(),
+            "cuda_rng": torch.cuda.get_rng_state()}
+    flat, _ = torch.utils._pytree.tree_flatten_with_path(tree)
+    return {torch.utils._pytree.keystr(k): v.cpu().numpy().tobytes() if torch.is_tensor(v) else v
+            for k, v in flat}
+
+
+def step_memory(card: str) -> None:
+    """``StagedRunner.step_memory_analysis`` of xDeepFM and DIN (batch 1024,
+    after one step, so Adam holds its moments), beside
+    ``max_memory_allocated``: every value at least 0 and under the card's
+    80 GB, and the state unchanged."""
+    for model in ("xdeepfm", "din"):
+        trainer = Trainer(WECHAT_SCHEMA, default_config(model), TrainConfig(log_every=0))
+        data = make_synthetic_dataset(WECHAT_SCHEMA, num_rows=SHARDED_ROWS, seed=SEED + 4)
+        runner = StagedRunner(trainer, *split_train_test(data, test_fraction=0.15), 1024)
+        state = trainer.init_state()
+        trainer.train_step(state, trainer.meters_init(), next(runner._slices(
+            runner.train_staged, 1)))
+        before = _tree_bytes(state)
+        mem = runner.step_memory_analysis(state)
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        check(_tree_bytes(state) == before, f"{model}: the memory analysis changed the state")
+        check(all(0 <= v * 2**30 < H100_HBM_BYTES for v in mem.values()) and peak_gb > 0,
+              f"{model}: memory analysis {mem}, peak {peak_gb} GiB")
+        emit(phase="step_memory", model=model, batch=1024, **mem,
+             max_memory_allocated_gb=peak_gb, card=card)
+
+
+def measurement_phase(workdir: str, card: str) -> dict:
+    """Phase 4i; returns its launches of each kernel (the spawned precision
+    runs' included)."""
+    launches = profile_traces(workdir, card)
+    zero_launches()
+    roofline_lines(card)
+    step_memory(card)
+    for kernel, n in kernel_launches().items():
+        launches[kernel] = launches.get(kernel, 0) + n
+    for kernel, n in precision_runs(workdir, card).items():
+        launches[kernel] += n
+    emit(phase="measurement_launches", launches=launches)
+    return launches
 
 # -- phase 5 ------------------------------------------------------------------
 
@@ -1651,6 +1971,7 @@ def main(argv=None) -> int:
         train_and_serve_multitask(workdir, card)
         file_launches, file_b1 = train_from_files(workdir, card)
         sharded_launches = sharded_phase(workdir, card)
+        measure_launches = measurement_phase(workdir, card)
     file_err = check_din_on_file_data(file_b1)
     serve_din(gen, card)
     c2_launches = serve_c2_shapes(gen, card)
@@ -1672,8 +1993,8 @@ def main(argv=None) -> int:
         ("din_attention_fwd", ("din_attention_fwd", 1024),
          "rank_tpu_torch/ops/kernels/csrc/din_attention.cu",
          "rank_tpu/ops/pallas/din_attention.py:156",
-         din_launches + file_launches["din_attention_fwd"] + sharded_launches["din_attention_fwd"],
-         max(din_err, file_err)),
+         din_launches + file_launches["din_attention_fwd"] + sharded_launches["din_attention_fwd"]
+         + measure_launches["din_attention_fwd"], max(din_err, file_err)),
         # the generic B1 kernel, launched on slice 6's path (DIN at D = 12)
         ("din_attention_generic_fwd", ("din_attention_generic_fwd", "D12"),
          "rank_tpu_torch/ops/kernels/csrc/din_attention.cu",
@@ -1681,8 +2002,8 @@ def main(argv=None) -> int:
          c2_launches["din_attention_generic_fwd"], din_c2_err["din_attention_generic_fwd"]),
         ("cin_layer_fwd", ("cin_layer_fwd/layer1", 1024), "rank_tpu_torch/ops/kernels/csrc/cin.cu",
          "rank_tpu/ops/pallas/cin.py:140",
-         cin_launches + file_launches["cin_layer_fwd"] + sharded_launches["cin_layer_fwd"],
-         cin_err),
+         cin_launches + file_launches["cin_layer_fwd"] + sharded_launches["cin_layer_fwd"]
+         + measure_launches["cin_layer_fwd"], cin_err),
     ):
         # B = 1024: the batch of the training path; B2 at its heavier layer.
         # library_ms: none for B1 (no single PyTorch call computes DIN

@@ -31,9 +31,10 @@ the sharded tables and ``--staged_shuffle`` the epoch shuffle
 under any table parallelism (``_restore_normal_form``); rank 0 alone
 writes them, ``metrics_history.jsonl`` and ``predictions.csv``.
 
-Every flag whose path is not ported yet raises ``NotImplementedError``
-naming its ``ROADMAP.md`` item, rather than being ignored:
-``--profile_dir`` and ``--matmul_precision`` (A14).
+``--profile_dir`` traces the first epoch's training with ``torch.profiler``
+into a chrome trace a rank (``trace_rank{rank}.json``), and
+``--matmul_precision`` sets torch's float32 matmul precision around each
+train step (``train/loop.py``).
 
 Every model of the JAX registry runs, the multi-task ESMM, MMOE and PLE
 with every ``--task_weighting`` (sum, uncertainty, gradnorm, pcgrad;
@@ -189,17 +190,6 @@ def model_config_from_args(args):
     return default_config(args.model, **overrides)
 
 
-def _refuse_unported(args) -> None:
-    """Raise for every asked-for path the port does not have yet."""
-    unported = [
-        (args.profile_dir, "--profile_dir (ROADMAP A14)"),
-        (args.matmul_precision, "--matmul_precision (ROADMAP A14)"),
-    ]
-    for asked, what in unported:
-        if asked:
-            raise NotImplementedError(f"{what} is not ported to rank_tpu_torch yet")
-
-
 def _load_split(path: str, schema, vocab_dir: str):
     if path.endswith(".npz"):
         return load_npz(path)
@@ -241,7 +231,6 @@ def main(argv=None) -> int:
         print("need --train_data/--eval_data/--vocabulary_dir or --synthetic=N", file=sys.stderr)
         return 2
     model_cfg = model_config_from_args(args)
-    _refuse_unported(args)
 
     if args.synthetic_calibrated:
         from .data.calibrated import make_calibrated_dataset
@@ -283,6 +272,8 @@ def main(argv=None) -> int:
         label=args.label,
         table_parallelism=args.table_parallelism,
         gradient_clip_norm=args.gradient_clip_norm,
+        profile_dir=args.profile_dir,
+        matmul_precision=args.matmul_precision,
     )
     trainer = Trainer(schema, model_cfg, train_cfg, device=mesh.device, mesh=mesh)
     bs = max(train_cfg.batch_size // d, 1)  # this rank's rows a step

@@ -28,6 +28,9 @@ H100 and how its design answers that.
   * ``CINLayerFn``: the same gradient as a ``torch.autograd.Function``
     around any forward implementation (a CPU test runs it with the plain
     forward, ``chip_smoke.py`` with ``cin_layer_cuda_t``).
+  * a FLOP formula for the operator (``register_flop_formula``), so that
+    ``FlopCounterMode`` counts its 2 B D H F O product FLOPs, as many as
+    it counts for the plain version; without it the operator counts 0.
   * ``cin_layer_t``: the operator, on either device (``backend='auto'``);
     ``cin_layer_cuda_fn_t`` the same, raising on CPU tensors
     (``backend='pallas'``).
@@ -38,6 +41,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import _build
 from ..mlp import cast_contiguous, einsum, promoted_dtype
@@ -192,6 +196,14 @@ def _backward(ctx, grad_out):
 
 
 cin_layer_op.register_autograd(_backward, setup_context=_setup_context)
+
+
+@register_flop_formula(torch.ops.rank_tpu_torch.cin_layer_t)
+def cin_layer_flops(xk_shape, x0_shape, w_shape, out_shape=None, **kwargs) -> int:
+    """2 B D H F O: the products the plain version's contraction makes."""
+    b, d, h = xk_shape
+    o, _, f = w_shape
+    return 2 * b * d * h * f * o
 
 
 def cin_layer_t(xk_t: torch.Tensor, x0_t: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

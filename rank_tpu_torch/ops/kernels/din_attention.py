@@ -30,6 +30,10 @@ that.
   * ``DINAttentionFn``: the same gradient as a ``torch.autograd.Function``
     around any forward implementation (a CPU test runs it with the plain
     forward, ``chip_smoke.py`` with ``din_attention_cuda``).
+  * a FLOP formula for the operator (``register_flop_formula``), so that
+    ``FlopCounterMode`` counts its products as it counts the plain
+    version's, over every one of the B T keys; without it the operator
+    counts 0.
   * ``din_attention``: the operator, on either device (``backend='auto'``);
     ``din_attention_cuda_fn`` the same, raising on CPU tensors
     (``backend='pallas'``).
@@ -42,6 +46,7 @@ import math
 from typing import Sequence
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import _build
 from ..attention import MASK_NEG, length_mask, masked_softmax
@@ -255,6 +260,17 @@ def _backward(ctx, grad_out):
 
 
 din_attention_op.register_autograd(_backward, setup_context=_setup_context)
+
+
+@register_flop_formula(torch.ops.rank_tpu_torch.din_attention)
+def din_attention_flops(query_shape, keys_shape, lengths_shape, w1_shape, b1_shape, w2_shape,
+                        *args, out_shape=None, **kwargs) -> int:
+    """2 B T (4D H1 + H1 H2 + H2) for the scoring MLP and 2 B T D for the
+    weighted sum: the products the plain version makes, every key counted
+    (masked ones too)."""
+    b, t, d = keys_shape
+    h1, h2 = w2_shape
+    return 2 * b * t * (4 * d * h1 + h1 * h2 + h2) + 2 * b * t * d
 
 
 def din_attention(

@@ -60,19 +60,34 @@ each rank trains on its data shard's rows of every global batch:
     restore into ``Predictor`` and into runs of any t (``repad_state``,
     ``commit_state``).
 
-Not ported yet, and raising when asked for: ``matmul_precision`` and
-``profile_dir`` (ROADMAP A14).
+Measurement (``rank_tpu/train/loop.py:462-466,597-630``):
+
+  * ``matmul_precision`` sets torch's float32 matmul precision around each
+    ``train_step`` only, and puts the caller's back after it, also when the
+    step raises (``matmul_precision_scope``): ``bfloat16`` is torch's
+    ``'medium'`` (TF32 products on the card, bf16 ones on a CPU with
+    AMX), ``float32`` and ``highest`` are ``'highest'``, None leaves it
+    alone. The hand-written kernels compute 3xTF32 under every setting;
+  * ``profile_dir`` traces epoch 1 with ``torch.profiler`` (CPU activity,
+    and CUDA activity on a CUDA trainer) and writes one chrome trace a
+    rank, ``trace_rank{rank}.json``. A profiler that cannot start raises,
+    and so does a trace of a CUDA trainer that holds no device activity;
+  * ``restoring`` runs a measured step (``utils/roofline.py:step_costs``,
+    ``StagedRunner.step_memory_analysis``) and puts the state back.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import os
 import time
-from typing import Any, Callable, Dict, Iterable, Mapping, Optional
+from typing import Any, Callable, Dict, Iterable, Iterator, Mapping, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils._pytree import tree_map
 
 from ..embedding.collection import table_specs
 from ..embedding.sharded import TableEmbedding, shard_table
@@ -85,6 +100,24 @@ from . import mtl
 from .checkpoint import load_into, rng_states
 
 State = Dict[str, Any]
+
+# TrainConfig.matmul_precision -> torch.set_float32_matmul_precision
+MATMUL_PRECISIONS = {"bfloat16": "medium", "float32": "highest", "highest": "highest"}
+
+
+@contextlib.contextmanager
+def matmul_precision_scope(name: Optional[str]) -> Iterator[None]:
+    """torch's float32 matmul precision for ``name`` (``MATMUL_PRECISIONS``)
+    inside the block, the caller's after it; None changes nothing."""
+    if name is None:
+        yield
+        return
+    before = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision(MATMUL_PRECISIONS[name])
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(before)
 
 
 @dataclasses.dataclass
@@ -238,10 +271,9 @@ class Trainer:
         device="cuda",
         mesh: Optional[Mesh] = None,
     ):
-        if train_cfg.matmul_precision is not None:
-            raise NotImplementedError("matmul_precision is not ported yet (ROADMAP A14)")
-        if train_cfg.profile_dir is not None:
-            raise NotImplementedError("profile_dir is not ported yet (ROADMAP A14)")
+        if train_cfg.matmul_precision not in (None, *MATMUL_PRECISIONS):
+            raise ValueError(f"matmul_precision {train_cfg.matmul_precision!r}: one of "
+                             f"{sorted(MATMUL_PRECISIONS)} or None")
         self.device = local_device(resolve_device(device))
         self.mesh = mesh if mesh is not None else make_mesh(
             table_parallelism=train_cfg.table_parallelism, device=self.device)
@@ -560,10 +592,35 @@ class Trainer:
             p.grad = g
         return loss, probs
 
+    @contextlib.contextmanager
+    def restoring(self, state: State) -> Iterator[State]:
+        """``state`` inside the block, then put back as it was on entry:
+        the model, the optimizer, the step, GradNorm's state, PCGrad's
+        generator and the random generators, from a host copy taken on
+        entry. For a step run only to be measured."""
+        tree = {"model": state["model"].state_dict(),
+                "optimizer": state["optimizer"].state_dict(), "step": state["step"],
+                "rng": rng_states()}
+        if "mtl" in state:
+            tree["mtl"] = state["mtl"]
+        if "pcgrad_generator" in state:
+            tree["pcgrad_generator"] = state["pcgrad_generator"].get_state()
+        saved = tree_map(
+            lambda x: x.detach().to("cpu", copy=True) if torch.is_tensor(x) else x, tree)
+        try:
+            yield state
+        finally:
+            load_into(state, saved)
+
     def train_step(self, state: State, meters: Dict[str, torch.Tensor], batch) -> None:
         """One optimizer step on a device batch; folds its metrics into
         ``meters`` on the device. The parameters' ``.grad`` hold this step's
-        gradients afterwards (summed over the data group)."""
+        gradients afterwards (summed over the data group). Runs under
+        ``cfg.matmul_precision``."""
+        with matmul_precision_scope(self.cfg.matmul_precision):
+            self._train_step(state, meters, batch)
+
+    def _train_step(self, state: State, meters: Dict[str, torch.Tensor], batch) -> None:
         model, optimizer = state["model"], state["optimizer"]
         model.train()
         out = model(batch)
@@ -597,26 +654,49 @@ class Trainer:
 
     # -- epochs --------------------------------------------------------------
 
+    def _profiler(self) -> torch.profiler.profile:
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        return torch.profiler.profile(activities=activities)
+
+    def _write_trace(self, prof: torch.profiler.profile) -> None:
+        """Export epoch 1's chrome trace; raise if a CUDA trainer's trace
+        holds no device activity (a profiler that did not reach the card)."""
+        if self.device.type == "cuda" and not any(
+                e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events()):
+            raise RuntimeError("the profiler recorded no CUDA activity: no trace of the "
+                               "card was taken")
+        os.makedirs(self.cfg.profile_dir, exist_ok=True)
+        prof.export_chrome_trace(
+            os.path.join(self.cfg.profile_dir, f"trace_rank{self.mesh.rank}.json"))
+        print(f"profile trace written to {self.cfg.profile_dir}")
+
     def train_epoch(self, state: State, batches: Iterable[Mapping[str, Any]], epoch: int = 1):
         """One pass over ``batches`` (numpy or device batches). The meters
         stay on the device; the host reads them at each log line and once
-        at the end, which is also the timing fence."""
+        at the end, which is also the timing fence. Epoch 1 runs under the
+        profiler when ``cfg.profile_dir`` is set."""
+        profiled = bool(self.cfg.profile_dir) and epoch == 1
         meters = self.meters_init()
         nsteps = 0
         t0 = time.time()
-        for batch in batches:
-            self.train_step(state, meters, self.to_device(batch))
-            nsteps += 1
-            if self.cfg.log_every and nsteps % self.cfg.log_every == 0:
-                read = self.read_meters(meters)
-                eps = read["count"] / max(time.time() - t0, 1e-9)
-                print(
-                    f"epoch {epoch} step {nsteps}: "
-                    f"loss={read['loss'] / nsteps:.4f} "
-                    f"examples/s={eps:,.0f}"
-                )
-        read = self.read_meters(meters)
+        with self._profiler() if profiled else contextlib.nullcontext() as prof:
+            for batch in batches:
+                self.train_step(state, meters, self.to_device(batch))
+                nsteps += 1
+                if self.cfg.log_every and nsteps % self.cfg.log_every == 0:
+                    read = self.read_meters(meters)
+                    eps = read["count"] / max(time.time() - t0, 1e-9)
+                    print(
+                        f"epoch {epoch} step {nsteps}: "
+                        f"loss={read['loss'] / nsteps:.4f} "
+                        f"examples/s={eps:,.0f}"
+                    )
+            read = self.read_meters(meters)
         dt = time.time() - t0
+        if profiled:
+            self._write_trace(prof)
         out = {
             "loss": read["loss"] / max(nsteps, 1),
             "accuracy": read["correct"] / max(read["count"], 1),

@@ -28,8 +28,9 @@ Epoch shuffles (``shuffle_mode``; a bad mode raises ``ValueError`` as
     per-worker shuffle of distributed loaders.
 
 With one data rank both modes draw the same permutation and move nothing.
-The JAX runner's TPU layout (several steps unrolled into one dispatch)
-answers the TPU's dispatch cost and is not carried over.
+``step_memory_analysis`` measures what one train step holds on the card
+(``staged.py:368``). The JAX runner's TPU layout (several steps unrolled
+into one dispatch) answers the TPU's dispatch cost and is not carried over.
 """
 
 from __future__ import annotations
@@ -175,6 +176,32 @@ class StagedRunner:
         # for data rank i
         wanted = perm.view(self.train_steps, d, self.batch_size).transpose(0, 1).reshape(d, -1)
         return self._exchange(self.train_staged, wanted)
+
+    def step_memory_analysis(self, state) -> Optional[Dict[str, float]]:
+        """What one train step on the first staged batch holds on the card,
+        GiB (2**30 bytes): ``argument_gb`` allocated at its entry (the
+        state, the staged splits, fresh meters), ``temp_gb`` its peak over
+        that, ``output_gb`` what it leaves allocated beyond that (Adam's
+        moments and the gradients after a first step). Measured by
+        ``torch.cuda.memory_allocated`` and ``max_memory_allocated`` (whose
+        peak it resets) around a real step, which ``Trainer.restoring``
+        then undoes. None on a CPU trainer: the JAX runner's contract for a
+        backend without a memory analysis."""
+        device = self.trainer.device
+        if device.type != "cuda":
+            return None
+        batch = next(self._slices(self.train_staged, 1))
+        with self.trainer.restoring(state):
+            meters = self.trainer.meters_init()
+            torch.cuda.synchronize(device)
+            entry = torch.cuda.memory_allocated(device)
+            torch.cuda.reset_peak_memory_stats(device)
+            self.trainer.train_step(state, meters, batch)
+            torch.cuda.synchronize(device)
+            peak = torch.cuda.max_memory_allocated(device)
+            left = torch.cuda.memory_allocated(device)
+        return {"argument_gb": entry / 2**30, "output_gb": (left - entry) / 2**30,
+                "temp_gb": (peak - entry) / 2**30}
 
     def train_epoch(self, state, epoch: int, seed: int = 42):
         batches = self._slices(self.shuffled(epoch, seed), self.train_steps)

@@ -17,6 +17,7 @@ import sys
 import numpy as np
 import pandas as pd
 import pytest
+import torch
 
 from rank_tpu import native as jax_native
 from rank_tpu.data import encode as JE
@@ -312,12 +313,22 @@ def test_cli_synthetic_calibrated_wins_over_synthetic(tmp_path, monkeypatch):
     np.testing.assert_array_equal(preds.iloc[:, 0], test["labels"][:, 0])
 
 
-@pytest.mark.parametrize("flag", ["--profile_dir=trace", "--matmul_precision=highest"])
-def test_cli_file_run_refuses_unported_flags(etl_out, tmp_path, flag):
-    """The A14 flags still raise on the file path, before any data loads."""
-    with pytest.raises(NotImplementedError, match="not ported"):
-        main(["--model=din", "--device=cpu", f"--model_dir={tmp_path}/m",
-              f"--output_dir={tmp_path}/o", *_file_flags(etl_out, "parquet"), flag])
+@pytest.mark.parametrize("flag", ["--profile_dir", "--matmul_precision=bfloat16"])
+def test_cli_file_run_takes_measurement_flags(etl_out, tmp_path, capsys, flag):
+    """The file path trains with each measurement flag: ``--profile_dir``
+    writes epoch 1's trace, ``--matmul_precision`` leaves the process's
+    setting as it found it."""
+    if flag == "--profile_dir":
+        flag = f"--profile_dir={tmp_path}/trace"
+    before = torch.get_float32_matmul_precision()
+    assert main(["--model=din", "--device=cpu", "--hidden_units=32,16", "--batch_size=16",
+                 f"--model_dir={tmp_path}/m", f"--output_dir={tmp_path}/o",
+                 *_file_flags(etl_out, "parquet"), flag]) == 0
+    assert torch.get_float32_matmul_precision() == before
+    assert os.path.exists(tmp_path / "o" / "predictions.csv")
+    if "profile_dir" in flag:
+        assert os.listdir(tmp_path / "trace") == ["trace_rank0.json"]
+        assert f"profile trace written to {tmp_path}/trace" in capsys.readouterr().out
 
 
 def test_npz_path_needs_no_pandas(etl_out, tmp_path):

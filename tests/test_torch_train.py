@@ -243,14 +243,16 @@ def jax_first_step(jtrainer, jstate, jbatch):
 
 
 def check_train_step_parity(name: str, overrides: dict, noise: dict, lr: float = 0.005,
-                            schemas=None, data=None, batch_size: int = PARITY_BS):
+                            schemas=None, data=None, batch_size: int = PARITY_BS,
+                            train_overrides=None, tol=TOL):
     """One JAX trainer and one port trainer from the same weights (the JAX
     init, carried over) and the same three batches: by default of the tiny
     schema's synthetic rows, else the first three ``batch_size`` batches of
     ``data`` under ``schemas`` (the port's schema, JAX's). Step 1: loss and every
     gradient. After 3 Adam steps: every parameter and BatchNorm running
     statistic. Under gradnorm, GradNorm's weights and initial losses after
-    every step.
+    every step. ``train_overrides`` are ``TrainConfig`` fields set alike on
+    both sides; ``tol`` is the bar (``TOL`` by default).
 
     Hazard: a Dense bias that feeds a BatchNorm (a bn_act tower) has a
     gradient that is zero up to rounding, and Adam turns that noise into
@@ -264,8 +266,10 @@ def check_train_step_parity(name: str, overrides: dict, noise: dict, lr: float =
         data = make_synthetic_dataset(schema, num_rows=3 * batch_size, seed=11)
     batches = list(ArrayLoader(data, batch_size))[:3]
 
+    train_overrides = dict(train_overrides or {}, batch_size=batch_size, learning_rate=lr,
+                           log_every=0)
     jtrainer = JaxTrainer(jax_schema, jax_default_config(name, **overrides),
-                          JaxTrainConfig(batch_size=batch_size, learning_rate=lr, log_every=0))
+                          JaxTrainConfig(**train_overrides))
     jstate = jtrainer.init_state(batches[0])
     variables0 = _variables(jstate)
     jbatches = [jtrainer._host_to_device(b) for b in batches]
@@ -277,8 +281,7 @@ def check_train_step_parity(name: str, overrides: dict, noise: dict, lr: float =
         jstate, jmeters = step(jstate, jmeters, b)
         jmtl_states.append(jax.device_get(jstate.get("mtl")))
 
-    trainer = Trainer(schema, default_config(name, **overrides),
-                      TrainConfig(batch_size=batch_size, learning_rate=lr, log_every=0),
+    trainer = Trainer(schema, default_config(name, **overrides), TrainConfig(**train_overrides),
                       device="cpu")
     state = trainer.init_state()
     model = state["model"]
@@ -289,22 +292,22 @@ def check_train_step_parity(name: str, overrides: dict, noise: dict, lr: float =
         trainer.train_step(state, meters, trainer.to_device(batches[i]))
         if jmtl_states[i] is not None:
             for key in ("w", "l0"):
-                np.testing.assert_allclose(state["mtl"][key].numpy(), jmtl_states[i][key], **TOL,
+                np.testing.assert_allclose(state["mtl"][key].numpy(), jmtl_states[i][key], **tol,
                                            err_msg=f"GradNorm {key} after step {i + 1}")
 
     take_step(0)
-    np.testing.assert_allclose(float(meters["loss"]), jloss, **TOL)
+    np.testing.assert_allclose(float(meters["loss"]), jloss, **tol)
     want_grads = state_dict_from_flax(model, {**variables0, "params": jgrads})
     params = dict(model.named_parameters())
     assert len(params) > 10
     for key, p in params.items():
-        np.testing.assert_allclose(p.grad.numpy(), want_grads[key].numpy(), **TOL,
+        np.testing.assert_allclose(p.grad.numpy(), want_grads[key].numpy(), **tol,
                                    err_msg=f"gradient of {key}")
 
     for i in range(1, len(batches)):
         take_step(i)
     assert state["step"] == 3
-    np.testing.assert_allclose(float(meters["loss"]), float(jmeters["loss"]), **TOL)
+    np.testing.assert_allclose(float(meters["loss"]), float(jmeters["loss"]), **tol)
     want = state_dict_from_flax(model, _variables(jstate))
     got = model.state_dict()
     assert set(noise) <= set(got)
@@ -312,8 +315,8 @@ def check_train_step_parity(name: str, overrides: dict, noise: dict, lr: float =
         if key.endswith("num_batches_tracked"):
             assert int(value) == 3
             continue
-        tol = dict(rtol=0, atol=noise[key]) if key in noise else TOL
-        np.testing.assert_allclose(value.numpy(), want[key].numpy(), **tol,
+        bar = dict(rtol=0, atol=noise[key]) if key in noise else tol
+        np.testing.assert_allclose(value.numpy(), want[key].numpy(), **bar,
                                    err_msg=f"{key} after 3 steps")
     return got, state
 
@@ -380,15 +383,6 @@ def test_cli_error_paths(tmp_path):
     assert main(["--model=din", "--train_data=a.parquet"]) == 2
 
 
-@pytest.mark.parametrize("extra", [
-    ["--model=din", "--profile_dir=trace"],
-    ["--model=din", "--matmul_precision=highest"],
-])
-def test_cli_unported_flags_raise(extra):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        main(["--synthetic=10", "--device=cpu", *extra])
-
-
 def test_cli_parser_matches_jax():
     """Every flag of the JAX CLI, with its default; the port adds --device."""
     def flags(parser):
@@ -397,6 +391,13 @@ def test_cli_parser_matches_jax():
     got, want = flags(build_parser()), flags(jax_build_parser())
     assert got.pop("device") == "cuda"
     assert got == want
+
+    def choices(parser, dest):
+        (action,) = [a for a in parser._actions if a.dest == dest]
+        return action.choices
+
+    assert choices(build_parser(), "matmul_precision") == choices(jax_build_parser(),
+                                                                  "matmul_precision")
     argv = ["--model=din", "--hidden_units=64,32", "--activation=prelu", "--use_softmax=false",
             "--dropout_rate=0.2", "--embedding_init=normal_small"]
     from rank_tpu.cli import model_config_from_args as jax_model_config
