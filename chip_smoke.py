@@ -94,7 +94,7 @@ Phases; any failure raises and the script exits non-zero:
         vocabulary-sized schema: B2 must launch once a layer and B1 once
         a step, train and eval, DIN's attention weights must move, eval
         AUC must pass 0.6 (printed beside rank_tpu's calibrated record,
-        no parity test). Each ``model_dir`` is served on the card against
+        the port's own test is phase j). Each ``model_dir`` is served on the card against
         the CPU to 1e-5 at 1000 eval rows. Then B1 against its plain
         version, to 1e-5, on a 1024-row batch of the eval file (the
         trained model's query, keys and weights, the file's skewed history
@@ -137,6 +137,14 @@ Phases; any failure raises and the script exits non-zero:
         (``StagedRunner.step_memory_analysis`` beside
         ``max_memory_allocated``): each value at least 0 and under 80 GB,
         the state unchanged;
+     j. training quality (slice 10): ``parity.run_calibrated`` trains
+        xDeepFM and DIN at seed 42 under rank_tpu's calibrated protocol
+        (the log of phase g, reused from its cache: scale 0.05, seed 0;
+        3 epochs, batch 1024, ``dense_init='torch'``): B2 must launch on
+        both CIN layers and B1 once in every train and eval step, and each
+        eval AUC must lie within 0.02 of the range of rank_tpu's three
+        recorded seeds (``PARITY_CALIB_r05.jsonl``; about 5 of the eval's
+        per-seed standard errors of 0.004). One ``parity`` line a model;
   5. times on the card: each kernel, its plain version (no yardstick of
      speed: it repeats the kernel's arithmetic in unfused torch ops), the
      one PyTorch call that computes the same function where there is one
@@ -156,7 +164,7 @@ Phases; any failure raises and the script exits non-zero:
 
 Then it prints one line ``{"kernels": [...]}`` (a row for each kernel
 variant, with the C2 shapes it ran; the launches include phase 4h's, every
-rank's, and phase 4i's), the card's line and, last,
+rank's, and phases 4i's and 4j's), the card's line and, last,
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -183,7 +191,7 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from rank_tpu_torch import (WECHAT_SCHEMA, Predictor, build_model, default_config,
                             export_serving_artifact, load_serving_artifact)
-from rank_tpu_torch import cli, native
+from rank_tpu_torch import cli, native, parity
 from rank_tpu_torch.data import calibrated
 from rank_tpu_torch.data.loader import split_train_test
 from rank_tpu_torch.data.synthetic import make_synthetic_dataset
@@ -225,11 +233,16 @@ ZOO_REQUEST_ROWS = (1, 1000, 5000)
 # port's producers. The card's machine has pandas and pyarrow, so the
 # phase writes the ETL's npz and parquet files and trains from both; a
 # machine without them fails the phase. rank_tpu's eval AUC on that log
-# (mean of 3 seeds, 3 epochs, --dense_init torch) is printed beside the
-# port's; it is no parity test (ROADMAP A15).
+# (mean of 3 seeds, 3 epochs, --dense_init torch; parity.jax_records) is
+# printed beside the port's; the parity test is phase 4j's.
 CALIBRATED_SCALE = 0.05
-CALIBRATED_RECORD = {"xdeepfm": 0.893, "din": 0.899}
 FILE_SERVE_ROWS = 1000
+# phase 4j: rank_tpu's calibrated protocol for the two kernel models at
+# one seed, held to the range of rank_tpu's recorded seeds widened by
+# QUALITY_BAND (about 5 per-seed standard errors of the 30,452-row eval)
+QUALITY_MODELS = (("xdeepfm", "cin_layer_fwd"), ("din", "din_attention_fwd"))
+QUALITY_SEED = 42
+QUALITY_BAND = 0.02
 # card against CPU at the bf16 defaults of BST and AutoInt: the probability
 # bar of tests/test_torch_zoo_forward.py (BF16_BAR)
 BF16_PROB_ATOL = 0.05
@@ -283,12 +296,7 @@ EXPORT_TOL = dict(rtol=1e-6, atol=1e-6)
 EXPORT_BATCH = 256
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
+card_line = parity.card_line
 
 
 def emit(**fields) -> None:
@@ -1208,9 +1216,9 @@ def train_from_files(workdir: str, card: str):
         check(sum(got.values()) == got[kernel], f"{run} launched a kernel of another path: {got}")
         best = max(h["eval_auc"] for h in history)
         emit(phase="file_data_auc", model=model, run=run, epochs=epochs, best_eval_auc=best,
-             rank_tpu_calibrated_record=CALIBRATED_RECORD[model],
+             rank_tpu_calibrated_record=float(np.mean(rank_tpu_seeds(model))),
              record_note="rank_tpu, 3 epochs, mean of 3 seeds, --dense_init torch "
-                         "(PARITY_CALIB_r05.md); no parity test (ROADMAP A15)", card=card)
+                         "(PARITY_CALIB_r05.jsonl); the parity test is phase 4j's", card=card)
         check(best > 0.6, f"{run} eval AUC {best} is not above 0.6")
         for key in launches:
             launches[key] += got[key]
@@ -1240,6 +1248,47 @@ def train_from_files(workdir: str, card: str):
         params = tuple(getattr(attention, n).detach().contiguous()
                        for n in ("w1", "b1", "w2", "b2", "w3", "b3"))
     return launches, (q, keys, batch[seq + "_length"].contiguous(), params, cfg.use_softmax)
+
+
+def rank_tpu_seeds(model: str):
+    """rank_tpu's recorded eval AUC of ``model`` on the calibrated log, one
+    a seed of the protocol."""
+    record = parity.jax_records("calib")
+    return [record[(model, seed)]["auc"] for seed in parity.SEEDS]
+
+
+def quality_phase(workdir: str, card: str) -> dict:
+    """Phase 4j: ``parity.run_calibrated`` for xDeepFM and DIN at
+    ``QUALITY_SEED`` under rank_tpu's calibrated protocol, on phase 4g's
+    log (the same cache, scale and seed). Each kernel must launch in every
+    train and eval step (B2 once a CIN layer) and no other kernel; each
+    eval AUC must lie in rank_tpu's recorded range widened by
+    ``QUALITY_BAND``. Returns the phase's launches of each kernel."""
+    data = parity.calibrated_data(CALIBRATED_SCALE, os.path.join(workdir, "calibrated"))
+    steps = parity.EPOCHS * -(-len(data.train["labels"]) // parity.BATCH_SIZE) + \
+        -(-len(data.eval["labels"]) // parity.BATCH_SIZE)
+    launches = {"din_attention_fwd": 0, "cin_layer_fwd": 0}
+    for model, kernel in QUALITY_MODELS:
+        zero_launches()
+        rec = parity.run_calibrated(model, QUALITY_SEED, data)
+        got = kernel_launches()
+        per_step = len(default_config(model).cin_layer_sizes) if model == "xdeepfm" else 1
+        check(got[kernel] == per_step * steps,
+              f"{model} launched {kernel} {got[kernel]} times, want {per_step * steps}")
+        check(sum(got.values()) == got[kernel], f"{model} launched a kernel of another path: {got}")
+        check(rec["protocol"] and rec["rank_tpu"] is not None,
+              f"{model} did not run rank_tpu's protocol: {rec}")
+        seeds = rank_tpu_seeds(model)
+        band = [min(seeds) - QUALITY_BAND, max(seeds) + QUALITY_BAND]
+        mean = float(np.mean(seeds))
+        emit(phase="parity", model=model, seed=QUALITY_SEED, port_auc=rec["port"],
+             rank_tpu_seeds=dict(zip(parity.SEEDS, seeds)), rank_tpu_mean=mean,
+             delta=rec["port"] - mean, band=band, seconds=rec["t_port_s"], steps=steps,
+             launches=got, card=card)
+        check(band[0] <= rec["port"] <= band[1],
+              f"{model} eval AUC {rec['port']} is outside rank_tpu's band {band}")
+        launches[kernel] += got[kernel]
+    return launches
 
 
 def check_din_on_file_data(file_b1) -> float:
@@ -1970,6 +2019,7 @@ def main(argv=None) -> int:
         train_and_serve_zoo(workdir, card)
         train_and_serve_multitask(workdir, card)
         file_launches, file_b1 = train_from_files(workdir, card)
+        quality_launches = quality_phase(workdir, card)
         sharded_launches = sharded_phase(workdir, card)
         measure_launches = measurement_phase(workdir, card)
     file_err = check_din_on_file_data(file_b1)
@@ -1994,7 +2044,8 @@ def main(argv=None) -> int:
          "rank_tpu_torch/ops/kernels/csrc/din_attention.cu",
          "rank_tpu/ops/pallas/din_attention.py:156",
          din_launches + file_launches["din_attention_fwd"] + sharded_launches["din_attention_fwd"]
-         + measure_launches["din_attention_fwd"], max(din_err, file_err)),
+         + measure_launches["din_attention_fwd"] + quality_launches["din_attention_fwd"],
+         max(din_err, file_err)),
         # the generic B1 kernel, launched on slice 6's path (DIN at D = 12)
         ("din_attention_generic_fwd", ("din_attention_generic_fwd", "D12"),
          "rank_tpu_torch/ops/kernels/csrc/din_attention.cu",
@@ -2003,7 +2054,7 @@ def main(argv=None) -> int:
         ("cin_layer_fwd", ("cin_layer_fwd/layer1", 1024), "rank_tpu_torch/ops/kernels/csrc/cin.cu",
          "rank_tpu/ops/pallas/cin.py:140",
          cin_launches + file_launches["cin_layer_fwd"] + sharded_launches["cin_layer_fwd"]
-         + measure_launches["cin_layer_fwd"], cin_err),
+         + measure_launches["cin_layer_fwd"] + quality_launches["cin_layer_fwd"], cin_err),
     ):
         # B = 1024: the batch of the training path; B2 at its heavier layer.
         # library_ms: none for B1 (no single PyTorch call computes DIN

@@ -234,7 +234,7 @@ def test_port_imports_nothing_of_jax():
     assert {"rank_tpu_torch/native/__init__.py", "rank_tpu_torch/data/calibrated.py",
             "rank_tpu_torch/data/etl.py", "rank_tpu_torch/parallel/mesh.py",
             "rank_tpu_torch/embedding/sharded.py", "rank_tpu_torch/utils/roofline.py",
-            "rank_tpu_torch/utils/op_bytes.py"} <= names
+            "rank_tpu_torch/utils/op_bytes.py", "rank_tpu_torch/parity.py"} <= names
     for path in files:
         for module in _imported_modules(path):
             top = module.split(".")[0]
@@ -253,7 +253,8 @@ def test_port_imports_nothing_of_jax():
         "rank_tpu_torch.data.etl, rank_tpu_torch.data.calibrated, rank_tpu_torch.data.douban, "
         "rank_tpu_torch.parallel, rank_tpu_torch.parallel.mesh, "
         "rank_tpu_torch.embedding.sharded, rank_tpu_torch.train.staged, "
-        "rank_tpu_torch.utils, rank_tpu_torch.utils.roofline, rank_tpu_torch.utils.op_bytes; "
+        "rank_tpu_torch.utils, rank_tpu_torch.utils.roofline, rank_tpu_torch.utils.op_bytes, "
+        "rank_tpu_torch.parity; "
         "new = {m.split('.')[0] for m in set(sys.modules) - before}; "
         "assert not new & {'jax', 'flax', 'rank_tpu'}, new"
     )
