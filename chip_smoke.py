@@ -145,6 +145,22 @@ Phases; any failure raises and the script exits non-zero:
         eval AUC must lie within 0.02 of the range of rank_tpu's three
         recorded seeds (``PARITY_CALIB_r05.jsonl``; about 5 of the eval's
         per-seed standard errors of 0.004). One ``parity`` line a model;
+     k. the full-scale rehearsal (slice 11): the port's producers build the
+        calibrated log at scale 1.0 (3,322,312 train and 609,036 eval
+        rows) in a spawned child that starts with phase 4 and runs beside
+        phases a to j (``fullscale_data`` gives its build seconds and what
+        the phase waited for it), and
+        ``fullscale.run_one`` trains xDeepFM and DIN on it for one epoch
+        each at full width (``dense_init='torch'``): every train row
+        trained, all 609,036 eval rows in ``predictions.csv``, the peak
+        card memory measured and above the staged splits, eval AUC over
+        0.80 (printed beside rank_tpu's 2-epoch record), the saved best
+        model served by ``Predictor(model_dir=...)`` on 1,000 eval rows
+        equal to the eval's probabilities to 1e-5, and B2 exactly
+        2 x (3,245 + 595 + 1 + 1) = 7,684 and B1 3,842 launches (train and
+        eval steps, ``step_memory_analysis``'s step, the served request).
+        One ``fullscale`` line a model with its record, and the phase's
+        seconds (``fullscale_seconds``);
   5. times on the card: each kernel, its plain version (no yardstick of
      speed: it repeats the kernel's arithmetic in unfused torch ops), the
      one PyTorch call that computes the same function where there is one
@@ -164,7 +180,7 @@ Phases; any failure raises and the script exits non-zero:
 
 Then it prints one line ``{"kernels": [...]}`` (a row for each kernel
 variant, with the C2 shapes it ran; the launches include phase 4h's, every
-rank's, and phases 4i's and 4j's), the card's line and, last,
+rank's, and phases 4i's, 4j's and 4k's), the card's line and, last,
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -191,7 +207,7 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from rank_tpu_torch import (WECHAT_SCHEMA, Predictor, build_model, default_config,
                             export_serving_artifact, load_serving_artifact)
-from rank_tpu_torch import cli, native, parity
+from rank_tpu_torch import cli, fullscale, native, parity
 from rank_tpu_torch.data import calibrated
 from rank_tpu_torch.data.loader import split_train_test
 from rank_tpu_torch.data.synthetic import make_synthetic_dataset
@@ -243,6 +259,20 @@ FILE_SERVE_ROWS = 1000
 QUALITY_MODELS = (("xdeepfm", "cin_layer_fwd"), ("din", "din_attention_fwd"))
 QUALITY_SEED = 42
 QUALITY_BAND = 0.02
+# phase 4k: the full-scale rehearsal's two kernel models, one epoch each
+# on the calibrated log at scale 1.0 (the reference's 3,322,312 train and
+# 609,036 eval rows), at full width through fullscale.run_one; eval AUC
+# must pass a learning-sanity bar (rank_tpu's 2-epoch records are 0.84031
+# and 0.86404) and the served best model match the eval's probabilities
+FULLSCALE_SCALE = 1.0
+FULLSCALE_MODELS = QUALITY_MODELS
+FULLSCALE_ROWS = (3_322_312, 609_036)
+FULLSCALE_EPOCHS = 1
+FULLSCALE_AUC_BAR = 0.80
+FULLSCALE_SERVE_ROWS = 1000
+# the log's build (about 4 min of host time on the card's machine) runs in
+# a spawned child from the start of phase 4, beside the earlier phases
+FULLSCALE_LOG_TIMEOUT_S = 900
 # card against CPU at the bf16 defaults of BST and AutoInt: the probability
 # bar of tests/test_torch_zoo_forward.py (BF16_BAR)
 BF16_PROB_ATOL = 0.05
@@ -1291,6 +1321,100 @@ def quality_phase(workdir: str, card: str) -> dict:
     return launches
 
 
+def build_fullscale_log(cache_dir: str, out_path: str) -> None:
+    """Phase 4k's data, in a spawned child: the port's producers write the
+    calibrated log at ``FULLSCALE_SCALE`` and its ETL into ``cache_dir``;
+    the build's host seconds go to ``out_path``."""
+    t0 = time.perf_counter()
+    calibrated.make_calibrated_dataset(scale=FULLSCALE_SCALE, cache_dir=cache_dir)
+    with open(out_path, "w") as f:
+        json.dump({"seconds": time.perf_counter() - t0}, f)
+
+
+def start_fullscale_log(workdir: str):
+    """Start ``build_fullscale_log`` in a spawned child (no CUDA there);
+    returns the process, its cache dir and its output file."""
+    cache, out = os.path.join(workdir, "calibrated_fullscale"), os.path.join(workdir, "log.json")
+    proc = torch.multiprocessing.get_context("spawn").Process(target=build_fullscale_log,
+                                                              args=(cache, out))
+    proc.start()
+    return proc, cache, out
+
+
+def stop(proc) -> None:
+    if proc.is_alive():
+        proc.kill()
+        proc.join(30)
+
+
+def fullscale_phase(workdir: str, card: str, log_build) -> dict:
+    """Phase 4k: ``fullscale.run_one`` for xDeepFM and DIN, one epoch each,
+    on the calibrated log at ``FULLSCALE_SCALE`` (``log_build``: the child
+    of ``start_fullscale_log``, joined here; its build seconds and the
+    wait are printed), full width, ``dense_init='torch'``. Each run must
+    train every train row and export every eval row, measure a peak above
+    its staged splits, pass ``FULLSCALE_AUC_BAR``, and launch its kernel
+    exactly once a step (B2 once a CIN layer) in training, eval, the
+    memory analysis's step and the served request and no other kernel;
+    ``Predictor(model_dir=...)`` serves the saved best model on the card,
+    held to the eval's probabilities (its ``predictions.csv``) at
+    ``FULLSCALE_SERVE_ROWS`` rows to 1e-5. Returns the phase's launches
+    of each kernel."""
+    t_phase = time.perf_counter()
+    proc, cache, out = log_build
+    proc.join(FULLSCALE_LOG_TIMEOUT_S)
+    stop(proc)
+    check(proc.exitcode == 0, f"the full-scale log's build exited {proc.exitcode}")
+    waited = time.perf_counter() - t_phase
+    with open(out) as f:
+        built = json.load(f)["seconds"]
+    data = parity.calibrated_data(FULLSCALE_SCALE, cache)  # the child's cached files
+    t_data = time.perf_counter() - t_phase
+    rows = (len(data.train["labels"]), len(data.eval["labels"]))
+    emit(phase="fullscale_data", scale=FULLSCALE_SCALE, build_seconds=built,
+         waited_seconds=waited, seconds=t_data, train_rows=rows[0], eval_rows=rows[1],
+         card=card)
+    check(rows == FULLSCALE_ROWS, f"the calibrated log at {FULLSCALE_SCALE} has {rows} rows, "
+          f"want {FULLSCALE_ROWS}")
+    train_steps, eval_steps = (-(-n // parity.BATCH_SIZE) for n in rows)
+    serve_rows = {k: v[:FULLSCALE_SERVE_ROWS] for k, v in data.eval.items() if k != "labels"}
+    record = fullscale.rank_tpu_record()
+    out = os.path.join(workdir, "fullscale")
+    launches = {"din_attention_fwd": 0, "cin_layer_fwd": 0}
+    for model, kernel in FULLSCALE_MODELS:
+        t0 = time.perf_counter()
+        zero_launches()
+        rec = fullscale.run_one(model, data.train, data.eval, FULLSCALE_EPOCHS, parity.BATCH_SIZE,
+                                out, *rows, dense_init="torch")
+        cfg = default_config(model, dense_init="torch")
+        served = Predictor(WECHAT_SCHEMA, cfg, model_dir=os.path.join(out, model, "model"))(serve_rows)
+        got = kernel_launches()
+        probs = np.loadtxt(os.path.join(out, model, "out", "predictions.csv"), delimiter=",",
+                           skiprows=1, max_rows=FULLSCALE_SERVE_ROWS, dtype=np.float32)[:, 1]
+        err = float(np.abs(served["score"] - probs).max())
+        per_step = len(cfg.cin_layer_sizes) if model == "xdeepfm" else 1
+        # train and eval steps, the memory analysis's step, one served bucket
+        want = per_step * (FULLSCALE_EPOCHS * (train_steps + eval_steps) + 1 + 1)
+        emit(phase="fullscale", **rec, launches=got, want_launches=want,
+             serve_rows=FULLSCALE_SERVE_ROWS, serve_max_abs_err_vs_eval=err,
+             rank_tpu_record_2_epochs={k: record[model][k] for k in ("eval_auc", "best_auc")},
+             auc_bar=FULLSCALE_AUC_BAR, seconds=time.perf_counter() - t0)
+        check(rec["trained_rows_per_epoch"] == rows[0] and rec["predictions_rows"] == rows[1],
+              f"{model} trained {rec['trained_rows_per_epoch']} rows and exported "
+              f"{rec['predictions_rows']}, want {rows}")
+        staged = rec["staged_train_gb"] + rec["staged_eval_gb"]
+        check(rec["peak_hbm_gb"] is not None and rec["peak_hbm_gb"] > staged,
+              f"{model} peak {rec['peak_hbm_gb']} GiB is not above its staged {staged} GiB")
+        check(rec["eval_auc"] > FULLSCALE_AUC_BAR,
+              f"{model} eval AUC {rec['eval_auc']} is not above {FULLSCALE_AUC_BAR}")
+        check(err <= 1e-5, f"{model} served best model differs from its eval by {err}")
+        check(got[kernel] == want, f"{model} launched {kernel} {got[kernel]} times, want {want}")
+        check(sum(got.values()) == got[kernel], f"{model} launched a kernel of another path: {got}")
+        launches[kernel] += got[kernel]
+    emit(phase="fullscale_seconds", seconds=time.perf_counter() - t_phase, data_seconds=t_data)
+    return launches
+
+
 def check_din_on_file_data(file_b1) -> float:
     """B1 against its plain version on a 1024-row batch of the eval file
     (the trained model's query, keys and weights, the file's history
@@ -2013,13 +2137,18 @@ def main(argv=None) -> int:
 
     # 4. main paths
     with tempfile.TemporaryDirectory() as workdir:
-        xdeepfm_dir, cin_launches = train_xdeepfm(workdir, card)
-        din_launches = train_din(workdir, card)
-        serve_xdeepfm(xdeepfm_dir)
-        train_and_serve_zoo(workdir, card)
-        train_and_serve_multitask(workdir, card)
-        file_launches, file_b1 = train_from_files(workdir, card)
-        quality_launches = quality_phase(workdir, card)
+        log_build = start_fullscale_log(workdir)
+        try:
+            xdeepfm_dir, cin_launches = train_xdeepfm(workdir, card)
+            din_launches = train_din(workdir, card)
+            serve_xdeepfm(xdeepfm_dir)
+            train_and_serve_zoo(workdir, card)
+            train_and_serve_multitask(workdir, card)
+            file_launches, file_b1 = train_from_files(workdir, card)
+            quality_launches = quality_phase(workdir, card)
+            fullscale_launches = fullscale_phase(workdir, card, log_build)
+        finally:
+            stop(log_build[0])
         sharded_launches = sharded_phase(workdir, card)
         measure_launches = measurement_phase(workdir, card)
     file_err = check_din_on_file_data(file_b1)
@@ -2044,7 +2173,8 @@ def main(argv=None) -> int:
          "rank_tpu_torch/ops/kernels/csrc/din_attention.cu",
          "rank_tpu/ops/pallas/din_attention.py:156",
          din_launches + file_launches["din_attention_fwd"] + sharded_launches["din_attention_fwd"]
-         + measure_launches["din_attention_fwd"] + quality_launches["din_attention_fwd"],
+         + measure_launches["din_attention_fwd"] + quality_launches["din_attention_fwd"]
+         + fullscale_launches["din_attention_fwd"],
          max(din_err, file_err)),
         # the generic B1 kernel, launched on slice 6's path (DIN at D = 12)
         ("din_attention_generic_fwd", ("din_attention_generic_fwd", "D12"),
@@ -2054,7 +2184,8 @@ def main(argv=None) -> int:
         ("cin_layer_fwd", ("cin_layer_fwd/layer1", 1024), "rank_tpu_torch/ops/kernels/csrc/cin.cu",
          "rank_tpu/ops/pallas/cin.py:140",
          cin_launches + file_launches["cin_layer_fwd"] + sharded_launches["cin_layer_fwd"]
-         + measure_launches["cin_layer_fwd"] + quality_launches["cin_layer_fwd"], cin_err),
+         + measure_launches["cin_layer_fwd"] + quality_launches["cin_layer_fwd"]
+         + fullscale_launches["cin_layer_fwd"], cin_err),
     ):
         # B = 1024: the batch of the training path; B2 at its heavier layer.
         # library_ms: none for B1 (no single PyTorch call computes DIN

@@ -36,6 +36,12 @@ that is better beyond the noise is flagged too.
     python -m rank_tpu_torch.parity calib --models all --seeds 42,43,44
     python -m rank_tpu_torch.parity mtl --models all --weightings all --seeds 42,43,44
     python -m rank_tpu_torch.parity table --json_out PARITY_PORT_CALIB_H100.jsonl
+    python -m rank_tpu_torch.parity table --json_out PARITY_PORT_CALIB_H100.jsonl \
+        --rank_tpu_jsonl PARITY_CALIB_JAX_CPU.jsonl --md_out PARITY_PORT_VS_JAX_CPU.md
+
+The last holds the same runs against another file of rank_tpu's runner in
+the record's format (there: its protocol run on the CPU, in f32), in the
+cells that file has.
 
 Runs go to the card (``--device cuda``, the default); ``--device cpu`` runs
 the same code on the CPU, as the tests do.
@@ -162,12 +168,14 @@ def train_and_evaluate(trainer: Trainer, data: Dataset, epochs: int, state=None)
     return {"auc": stats["auc"], "task_aucs": stats["task_aucs"]}
 
 
-def jax_records(matrix: str) -> Dict[Tuple, Dict]:
+def jax_records(matrix: str, path: Optional[str] = None) -> Dict[Tuple, Dict]:
     """rank_tpu's record of ``matrix``: {(model, seed) or (model, weighting,
     seed): {"auc": primary head's eval AUC, "task_aucs": dict or None}}.
-    The latest line of a key wins, as ``scripts/parity_table.py`` reads it."""
+    The latest line of a key wins, as ``scripts/parity_table.py`` reads it.
+    ``path``: another file of rank_tpu's runner in the same format (default:
+    the matrix's record)."""
     out = {}
-    with open(ROOT / MATRICES[matrix].jax_jsonl) as f:
+    with open(path or ROOT / MATRICES[matrix].jax_jsonl) as f:
         for line in f:
             if not line.strip():
                 continue
@@ -188,6 +196,12 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def matmul_precision() -> Dict:
+    """The float32 matmul setting the run trained under."""
+    return {"float32_matmul_precision": torch.get_float32_matmul_precision(),
+            "allow_tf32": torch.backends.cuda.matmul.allow_tf32}
 
 
 def _run(key: Dict, model_cfg: ModelConfig, train_cfg: TrainConfig, data: Dataset,
@@ -211,8 +225,7 @@ def _run(key: Dict, model_cfg: ModelConfig, train_cfg: TrainConfig, data: Datase
         "t_port_s": seconds,
         "card": card_line() if trainer.device.type == "cuda" else None,
         "torch": torch.__version__,
-        "matmul_precision": {"float32_matmul_precision": torch.get_float32_matmul_precision(),
-                             "allow_tf32": torch.backends.cuda.matmul.allow_tf32},
+        "matmul_precision": matmul_precision(),
     }
     if json_out:
         with open(json_out, "a") as f:
@@ -286,21 +299,23 @@ def _order(matrix: str) -> List[Tuple]:
     return [(m, w) for m in MTL_MODELS for w in WEIGHTINGS]
 
 
-def table_rows(records: Iterable[Dict], matrix: str) -> List[Dict]:
-    """One row a cell that has protocol runs: the port's runs (protocol,
-    not superseded) against rank_tpu's record of every seed."""
+def table_rows(records: Iterable[Dict], matrix: str,
+               rank_tpu_jsonl: Optional[str] = None) -> List[Dict]:
+    """One row a cell that has protocol runs and a record: the port's runs
+    (protocol, not superseded) against rank_tpu's record of every seed
+    (or ``rank_tpu_jsonl``'s, another file of rank_tpu's runner)."""
     keys = _cell_keys(matrix)
     port: Dict[Tuple, List[Dict]] = {}
     for r in records:
         if r["matrix"] == matrix and r["protocol"] and not r.get("superseded"):
             port.setdefault(tuple(r[k] for k in keys), []).append(r)
     jax: Dict[Tuple, List[Dict]] = {}
-    for key, rec in jax_records(matrix).items():
+    for key, rec in jax_records(matrix, rank_tpu_jsonl).items():
         jax.setdefault(key[:-1], []).append(rec)
     rows = []
     for cell in _order(matrix):
         runs = port.get(cell)
-        if not runs:
+        if not runs or cell not in jax:
             continue
         p = [r["port"] for r in runs]
         j = [r["auc"] for r in jax[cell]]
@@ -318,9 +333,11 @@ Known differences the matrix cannot separate:
   side is not seed 42 of the other: only the distributions compare;
 - PCGrad's 3-task orders come from a `torch.Generator` seeded seed + 2
   (ROADMAP.md "Decisions in force"), not from JAX's key;
-- rank_tpu's record was taken on a TPU, at rank_tpu's default matmul
-  precision there; the port's runs compute f32 products at the precision
-  each line records, and its DIN attention and CIN kernels in 3xTF32.
+- rank_tpu's records `PARITY_CALIB_r05.jsonl` and `MTL_QUALITY_r03.jsonl`
+  were taken on a TPU, at rank_tpu's default matmul precision there (the
+  `*_JAX_CPU.jsonl` files on the CPU, in f32); the port's runs compute
+  f32 products at the precision each line records, and its DIN
+  attention and CIN kernels in 3xTF32.
 
 A flagged cell gets three more port seeds (45, 46, 47, `--flagged_seeds`);
 if it stays flagged, a CPU test trains both packages from the same
@@ -330,18 +347,21 @@ What that finds is recorded in ROADMAP.md's list C.
 """
 
 
-def render_table(records: List[Dict], matrix: str, source: str) -> str:
+def render_table(records: List[Dict], matrix: str, source: str,
+                 rank_tpu_jsonl: Optional[str] = None) -> str:
     m = MATRICES[matrix]
-    rows = table_rows(records, matrix)
+    rows = table_rows(records, matrix, rank_tpu_jsonl)
+    jax_file = m.jax_jsonl if rank_tpu_jsonl is None else os.path.basename(rank_tpu_jsonl)
+    again = "" if rank_tpu_jsonl is None else f" --rank_tpu_jsonl {jax_file}"
     label = "Model" if matrix == "calib" else "Model | Weighting"
     lines = [
         f"# Training quality, port against rank_tpu: {m.title}\n\n",
         f"Port: `rank_tpu_torch.parity` ({source}, one line a run); rank_tpu:\n"
-        f"`{m.jax_jsonl}`. Each cell's eval AUC (the primary head) over its\n"
+        f"`{jax_file}`. Each cell's eval AUC (the primary head) over its\n"
         "seeds, mean ± std (ddof 1); Δ = port mean − rank_tpu mean, SE =\n"
         "sqrt(s_p²/n_p + s_j²/n_j); **flag** where |Δ| > 2·SE, either sign.\n"
         "Regenerate with `python -m rank_tpu_torch.parity table --json_out "
-        f"{source}`.\n\n",
+        f"{source}{again}`.\n\n",
         f"| {label} | port n | port AUC | rank_tpu n | rank_tpu AUC | Δ | SE | Δ/SE | flag | port s/run |\n",
         "|---|" + ("---|" if matrix == "mtl" else "") + "---|" * 9 + "\n",
     ]
@@ -387,9 +407,11 @@ def render_table(records: List[Dict], matrix: str, source: str) -> str:
     return "".join(lines)
 
 
-def write_table(json_out: str, md_out: Optional[str] = None) -> Dict:
+def write_table(json_out: str, md_out: Optional[str] = None,
+                rank_tpu_jsonl: Optional[str] = None) -> Dict:
     """Regenerate the markdown table of ``json_out`` (its matrix read from
-    the lines); returns a summary: the flagged cells and the grand mean Δ."""
+    the lines) against rank_tpu's record, or ``rank_tpu_jsonl``; returns a
+    summary: the flagged cells and the grand mean Δ."""
     records = read_records(json_out)
     matrices = {r["matrix"] for r in records}
     if len(matrices) != 1:
@@ -397,8 +419,8 @@ def write_table(json_out: str, md_out: Optional[str] = None) -> Dict:
     (matrix,) = matrices
     md_out = md_out or os.path.splitext(json_out)[0] + ".md"
     with open(md_out, "w") as f:
-        f.write(render_table(records, matrix, os.path.basename(json_out)))
-    rows = table_rows(records, matrix)
+        f.write(render_table(records, matrix, os.path.basename(json_out), rank_tpu_jsonl))
+    rows = table_rows(records, matrix, rank_tpu_jsonl)
     summary = {"matrix": matrix, "md_out": md_out, "cells": len(rows),
                "grand_mean_delta": float(np.mean([r["delta"] for r in rows])) if rows else None,
                "flagged": [" ".join(r["cell"]) for r in rows if r["flagged"]]}
@@ -444,13 +466,16 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("table", help="regenerate a matrix's markdown table from its JSONL")
     p.add_argument("--json_out", default=MATRICES["calib"].json_out)
     p.add_argument("--md_out", default=None)
+    p.add_argument("--rank_tpu_jsonl", default=None,
+                   help="hold the port against this file of rank_tpu's runner (the same "
+                        "format as the matrix's record) instead of the record")
     return ap
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.command == "table":
-        write_table(args.json_out, args.md_out)
+        write_table(args.json_out, args.md_out, args.rank_tpu_jsonl)
         return 0
     common = dict(epochs=args.epochs, batch_size=args.batch_size, device=args.device,
                   json_out=args.json_out)

@@ -71,7 +71,9 @@ Measurement (``rank_tpu/train/loop.py:462-466,597-630``):
   * ``profile_dir`` traces epoch 1 with ``torch.profiler`` (CPU activity,
     and CUDA activity on a CUDA trainer) and writes one chrome trace a
     rank, ``trace_rank{rank}.json``. A profiler that cannot start raises,
-    and so does a trace of a CUDA trainer that holds no device activity;
+    and so does a trace of a CUDA trainer that holds no device activity.
+    On the card the profiler first sees ``PROFILER_WARMUP_S`` of tiny
+    kernels, for it has lost records of the first kernels it saw;
   * ``restoring`` runs a measured step (``utils/roofline.py:step_costs``,
     ``StagedRunner.step_memory_analysis``) and puts the state back.
 """
@@ -103,6 +105,8 @@ State = Dict[str, Any]
 
 # TrainConfig.matmul_precision -> torch.set_float32_matmul_precision
 MATMUL_PRECISIONS = {"bfloat16": "medium", "float32": "highest", "highest": "highest"}
+# seconds of tiny kernels the profiler sees before a profiled epoch's first step
+PROFILER_WARMUP_S = 0.02
 
 
 @contextlib.contextmanager
@@ -672,6 +676,18 @@ class Trainer:
             os.path.join(self.cfg.profile_dir, f"trace_rank{self.mesh.rank}.json"))
         print(f"profile trace written to {self.cfg.profile_dir}")
 
+    def _warm_profiler(self) -> None:
+        """On the H100 a trace lacked the device records of some of the
+        first kernels the profiler saw (their launch records were there):
+        up to 5 ms of launches, also when the first step came 0.1 s after
+        its start. So the profiler first sees ``PROFILER_WARMUP_S`` of
+        tiny kernels."""
+        warm = torch.zeros((), device=self.device)
+        end = time.perf_counter() + PROFILER_WARMUP_S
+        while time.perf_counter() < end:
+            warm.add_(1.0)
+        torch.cuda.synchronize(self.device)
+
     def train_epoch(self, state: State, batches: Iterable[Mapping[str, Any]], epoch: int = 1):
         """One pass over ``batches`` (numpy or device batches). The meters
         stay on the device; the host reads them at each log line and once
@@ -680,8 +696,10 @@ class Trainer:
         profiled = bool(self.cfg.profile_dir) and epoch == 1
         meters = self.meters_init()
         nsteps = 0
-        t0 = time.time()
         with self._profiler() if profiled else contextlib.nullcontext() as prof:
+            if profiled and self.device.type == "cuda":
+                self._warm_profiler()
+            t0 = time.time()
             for batch in batches:
                 self.train_step(state, meters, self.to_device(batch))
                 nsteps += 1

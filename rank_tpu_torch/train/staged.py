@@ -182,24 +182,32 @@ class StagedRunner:
         GiB (2**30 bytes): ``argument_gb`` allocated at its entry (the
         state, the staged splits, fresh meters), ``temp_gb`` its peak over
         that, ``output_gb`` what it leaves allocated beyond that (Adam's
-        moments and the gradients after a first step). Measured by
-        ``torch.cuda.memory_allocated`` and ``max_memory_allocated`` (whose
-        peak it resets) around a real step, which ``Trainer.restoring``
-        then undoes. None on a CPU trainer: the JAX runner's contract for a
-        backend without a memory analysis."""
+        moments and the gradients after a first step). Measured around a
+        real step, which ``Trainer.restoring`` then undoes, in the caching
+        allocator's requested bytes (``torch.cuda.memory_stats``'
+        ``requested_bytes.all.current`` and ``.peak``, whose peak it
+        resets): what the tensors asked for. ``memory_allocated`` counts
+        the blocks that hold them, and a block taken from the cache may
+        be larger than its tensor, by as much as the allocator's history
+        left: a step that frees and reallocates its gradients then reads
+        as leaving less than it found. None on a CPU trainer: the JAX
+        runner's contract for a backend without a memory analysis."""
         device = self.trainer.device
         if device.type != "cuda":
             return None
+
+        def requested(which: str) -> int:
+            return torch.cuda.memory_stats(device)[f"requested_bytes.all.{which}"]
+
         batch = next(self._slices(self.train_staged, 1))
         with self.trainer.restoring(state):
             meters = self.trainer.meters_init()
             torch.cuda.synchronize(device)
-            entry = torch.cuda.memory_allocated(device)
+            entry = requested("current")
             torch.cuda.reset_peak_memory_stats(device)
             self.trainer.train_step(state, meters, batch)
             torch.cuda.synchronize(device)
-            peak = torch.cuda.max_memory_allocated(device)
-            left = torch.cuda.memory_allocated(device)
+            peak, left = requested("peak"), requested("current")
         return {"argument_gb": entry / 2**30, "output_gb": (left - entry) / 2**30,
                 "temp_gb": (peak - entry) / 2**30}
 

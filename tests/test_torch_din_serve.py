@@ -234,7 +234,8 @@ def test_port_imports_nothing_of_jax():
     assert {"rank_tpu_torch/native/__init__.py", "rank_tpu_torch/data/calibrated.py",
             "rank_tpu_torch/data/etl.py", "rank_tpu_torch/parallel/mesh.py",
             "rank_tpu_torch/embedding/sharded.py", "rank_tpu_torch/utils/roofline.py",
-            "rank_tpu_torch/utils/op_bytes.py", "rank_tpu_torch/parity.py"} <= names
+            "rank_tpu_torch/utils/op_bytes.py", "rank_tpu_torch/parity.py",
+            "rank_tpu_torch/fullscale.py"} <= names
     for path in files:
         for module in _imported_modules(path):
             top = module.split(".")[0]
@@ -254,7 +255,7 @@ def test_port_imports_nothing_of_jax():
         "rank_tpu_torch.parallel, rank_tpu_torch.parallel.mesh, "
         "rank_tpu_torch.embedding.sharded, rank_tpu_torch.train.staged, "
         "rank_tpu_torch.utils, rank_tpu_torch.utils.roofline, rank_tpu_torch.utils.op_bytes, "
-        "rank_tpu_torch.parity; "
+        "rank_tpu_torch.parity, rank_tpu_torch.fullscale; "
         "new = {m.split('.')[0] for m in set(sys.modules) - before}; "
         "assert not new & {'jax', 'flax', 'rank_tpu'}, new"
     )

@@ -319,6 +319,29 @@ def test_mtl_table_jax_column_matches_mtl_quality_render(tmp_path):
         assert f"{mean:.4f} ± {sd:.4f}" == want[row["cell"]], row["cell"]
 
 
+def test_table_against_another_rank_tpu_file(tmp_path):
+    """``--rank_tpu_jsonl``: the port's runs against another file of
+    rank_tpu's runner (its format), in the cells that file has."""
+    other = {("dcn", 42): 0.9, ("dcn", 43): 0.91, ("dcn", 44): 0.905, ("pnn", 42): 0.897,
+             ("pnn", 45): 0.896}
+    path = tmp_path / "PARITY_CALIB_JAX_CPU.jsonl"
+    path.write_text("".join(json.dumps({"model": m, "seed": seed, "dense_init": "torch",
+                                        "ours": auc, "torch": 0.5}) + "\n"
+                            for (m, seed), auc in other.items()))
+    records = _protocol_records("calib")
+    port = tmp_path / "port.jsonl"
+    port.write_text("".join(json.dumps(r) + "\n" for r in records))
+    assert parity.main(["table", "--json_out", str(port), "--md_out", str(tmp_path / "t.md"),
+                        "--rank_tpu_jsonl", str(path)]) == 0
+    rows = parity.table_rows(records, "calib", str(path))
+    assert [row["cell"] for row in rows] == [("dcn",), ("pnn",)]
+    assert rows[0]["rank_tpu"] == [0.9, 0.91, 0.905] and rows[1]["rank_tpu"] == [0.897, 0.896]
+    table = (tmp_path / "t.md").read_text()
+    assert "`PARITY_CALIB_JAX_CPU.jsonl`" in table and "--rank_tpu_jsonl" in table
+    md = _md_rows(tmp_path / "t.md")
+    assert md["dcn"][4] == parity.mean_std([0.9, 0.91, 0.905]) and "widedeep" not in md
+
+
 def test_flag_rule_is_two_sided():
     jax_side = [0.900, 0.905, 0.910]
     spread = [-0.005, 0.0, 0.005]
@@ -353,7 +376,7 @@ def test_cli_runs_the_flagged_cells_again(small_log, tmp_path, monkeypatch):
     monkeypatch.setattr(parity, "calibrated_data", lambda scale, cache_dir: labelled)
     record = {("widedeep", seed): {"auc": 0.999 - 1e-4 * i, "task_aucs": None}
               for i, seed in enumerate(parity.SEEDS)}
-    monkeypatch.setattr(parity, "jax_records", lambda matrix: record)
+    monkeypatch.setattr(parity, "jax_records", lambda matrix, path=None: record)
     out = tmp_path / "calib.jsonl"
     assert parity.main(["calib", "--models", "widedeep", "--seeds", "42,43", "--device", "cpu",
                         "--json_out", str(out), "--flagged_seeds", "45"]) == 0
