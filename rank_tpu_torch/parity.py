@@ -344,6 +344,15 @@ if it stays flagged, a CPU test trains both packages from the same
 weights on the same batches for 50 steps
 (`tests/test_torch_parity_steps.py::test_long_training_matches_jax_step_by_step`).
 What that finds is recorded in ROADMAP.md's list C.
+
+With nothing different, |Δ| > 2·SE fires with P = 0.12–0.18 at 3 runs a
+side (Welch's t, 2–4 degrees of freedom), so 3–5 of the 26 cells of the
+two matrices flag by chance. ROADMAP.md's C4, the leans of these tables,
+is closed with no fault found at 20 seeds: whole runs of both packages on
+the CPU, with the initial draw, the epoch order and the arithmetic split
+apart, and the port's runs on the card at the same seeds
+(`C4_ARMS_CPU.md`, `tests/torch_c4_arms.py`). Its sub-item C4a, widedeep
+at full scale, is open.
 """
 
 

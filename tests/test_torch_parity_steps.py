@@ -10,7 +10,6 @@ import dataclasses
 import jax
 import numpy as np
 import pytest
-import torch
 
 from rank_tpu.features import WECHAT_SCHEMA as JAX_WECHAT_SCHEMA
 from rank_tpu.models import ModelConfig as JaxModelConfig
@@ -20,6 +19,7 @@ from rank_tpu_torch import WECHAT_SCHEMA, parity
 from rank_tpu_torch.data.loader import ArrayLoader
 from rank_tpu_torch.interop import state_dict_from_flax
 from rank_tpu_torch.train import Trainer
+from torch_jax_carry import load_jax_state
 
 SMALL_SCALE = 0.005
 
@@ -32,21 +32,6 @@ LR = parity.TrainConfig().learning_rate
 @pytest.fixture(scope="module")
 def small_log(tmp_path_factory):
     return parity.calibrated_data(SMALL_SCALE, str(tmp_path_factory.mktemp("calibrated")))
-
-
-def load_jax_state(trainer, state, host) -> None:
-    """The port's state set to a JAX trainer's (host copy): parameters,
-    BatchNorm statistics, Adam's moments and step count."""
-    model, optimizer = state["model"], state["optimizer"]
-    extra = host["extra"]
-    model.load_state_dict(state_dict_from_flax(model, {"params": host["params"], **extra}))
-    adam = host["opt_state"][0]
-    mu = state_dict_from_flax(model, {"params": adam.mu, **extra})
-    nu = state_dict_from_flax(model, {"params": adam.nu, **extra})
-    for name, p in model.named_parameters():
-        optimizer.state[p] = {"step": torch.tensor(float(adam.count)),
-                              "exp_avg": mu[name].clone(), "exp_avg_sq": nu[name].clone()}
-    state["step"] = int(host["step"])
 
 
 def adam_response_bar(p, g, mu, nu, count, gtol):
