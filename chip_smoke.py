@@ -14,7 +14,7 @@ Phases; any failure raises and the script exits non-zero:
      the build time and the compiler's register and shared-memory report;
      then ``cuobjdump -sass`` of each library counts the tensor-core
      instructions (HMMA, HGMMA) of each kernel, and fails if a kernel has
-     none (B1's generic kernel, on the CUDA cores by design, apart);
+     none (every kernel, B1's generic kernel's four variants among them);
   3. kernels vs plain: each kernel against its plain torch version on the
      card, within rtol/atol 1e-5: B1 (DIN attention) at B in {1, 7, 256,
      1024, 8192}, lengths that include 0, 1, 15, 16, 17, 49 and 50, both
@@ -29,9 +29,18 @@ Phases; any failure raises and the script exits non-zero:
      D = 64 (its tensor-core kernel), both softmax modes, and B2 at
      H = 300 and at F = 80, at B in {7, 1024}; the registered operators on
      bf16 inputs against the plain version run on the same inputs in f32,
-     to one bf16 ulp (plus the f32 1e-5 near zero); and for both kernels, the gradients through their
-     autograd Function and their registered operator against autograd
-     through the plain version, at B = 1024;
+     to one bf16 ulp (plus the f32 1e-5 near zero); B1's generic kernel
+     (on the tensor cores at zero-padded widths) at B in {1, 7,
+     256, 1024, 8192} at D = 12 and 128, at D in {10, 12, 128} with hidden
+     widths (32, 16), (64, 64) and (24, 12) at T = 50 and at T = 1024, at
+     hidden widths (136, 72) (h1 and h2 past one 64-column chunk), at
+     D = 256 and 4096 (weights, and then keys, read through L1/L2) and on
+     keys that do not start on a 16-byte boundary (4-byte copies), both
+     softmax modes, each against the plain version to 1e-5 and against
+     f64; and for both kernels, the gradients through their autograd
+     Function and their registered operator against autograd through the
+     plain version, at B = 1024 (B1 also through its generic kernel's
+     operator at D = 128);
   4. main paths, each with the launch counts zeroed just before it and
      read just after; every kernel of the path must have launched:
      a. training: ``rank_tpu_torch.cli.main`` on ``--model=xdeepfm
@@ -161,6 +170,19 @@ Phases; any failure raises and the script exits non-zero:
         eval steps, ``step_memory_analysis``'s step, the served request).
         One ``fullscale`` line a model with its record, and the phase's
         seconds (``fullscale_seconds``);
+     l. DIN with the feedid table and the history 128 wide (the
+        D of rank_tpu's ``scripts/bench_din_dims.py`` that B1's generic
+        kernel takes; run after phase g, while phase k's log builds):
+        ``Trainer`` and ``StagedRunner``, as ``parity.py``
+        drives them, train one epoch on 50,000 synthetic rows at
+        ``default_config`` and evaluate once: the generic kernel must
+        launch exactly once a train and eval step and no other kernel, the
+        loss must be finite, the attention weights must move and eval AUC
+        must pass 0.6. ``Predictor`` then serves the trained weights for
+        1, 1000 and 5000 rows on the card, held against the plain
+        attention to 1e-5, at ``weights_dtype='bfloat16'`` (as phase c
+        holds DIN's) and exported and reloaded; each launches the generic
+        kernel once a request (``din_wide`` lines);
   5. times on the card: each kernel, its plain version (no yardstick of
      speed: it repeats the kernel's arithmetic in unfused torch ops), the
      one PyTorch call that computes the same function where there is one
@@ -180,7 +202,8 @@ Phases; any failure raises and the script exits non-zero:
 
 Then it prints one line ``{"kernels": [...]}`` (a row for each kernel
 variant, with the C2 shapes it ran; the launches include phase 4h's, every
-rank's, and phases 4i's, 4j's and 4k's), the card's line and, last,
+rank's, and phases 4i's, 4j's and 4k's; the generic B1 kernel's phases 4f
+and 4l), the card's line and, last,
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -216,6 +239,7 @@ from rank_tpu_torch.ops.cin import xavier_uniform_
 from rank_tpu_torch.ops.kernels import _build
 from rank_tpu_torch.ops.kernels import cin as cin_kernels
 from rank_tpu_torch.ops.kernels import din_attention as din_kernels
+from rank_tpu_torch.ops.mlp import promoted_dtype
 from rank_tpu_torch.train import TrainConfig, Trainer
 from rank_tpu_torch.train import loop as train_loop
 from rank_tpu_torch.train.staged import StagedRunner
@@ -306,6 +330,25 @@ C2_DIN_SHAPES = (("D12", 50, 12, (64, 32)), ("D128", 50, 128, (64, 32)),
                  ("hidden32x16", 50, 16, (32, 16)), ("hidden64x64", 50, 16, (64, 64)),
                  ("T4096", 4096, 16, (64, 32)), ("T1024_D64", 1024, 64, (64, 32)))
 C2_B = (7, 1024)
+# B1's generic kernel, beside the C2 shapes: (B, T, D, hidden,
+# name). At D = 128 it stages its weights as TF32 fragments with a 2-stage
+# key ring at B <= 256, in f32 with 2 stages at B = 512 and with 1 stage at
+# B >= 1024; at D = 256 its weights are read through L1/L2 (2 stages at
+# B = 256, 1 at 1024), and at D = 4096 its keys too
+# (``csrc/din_attention.cu``: they do not fit in shared memory); (136, 72)
+# runs h1 in three chunks and h2 in two passes; "misaligned" keys start 4
+# bytes past a 16-byte boundary.
+GENERIC_DIN_HIDDEN = ((32, 16), (64, 64), (24, 12))
+GENERIC_DIN_CASES = (
+    [(b, 50, d, (64, 32), "") for d in (12, 128) for b in (1, 7) + TIMED_B]
+    + [(1024, 50, d, h, "") for d in (10, 12, 128) for h in GENERIC_DIN_HIDDEN]
+    + [(256, 1024, d, h, "T1024") for d, h in zip((10, 12, 128), GENERIC_DIN_HIDDEN)]
+    + [(1024, 50, 5, (136, 72), "chunks"), (7, 1024, 128, (64, 32), "T1024"),
+       (512, 50, 128, (64, 32), ""), (256, 50, 256, (64, 32), "global_weights"),
+       (1024, 50, 256, (64, 32), "global_weights"), (7, 50, 4096, (64, 32), "global_keys"),
+       (256, 50, 128, (64, 32), "misaligned"), (256, 50, 10, (24, 12), "misaligned")])
+# phase 4l: DIN with the feedid table and the history this wide
+DIN_WIDE_D = 128
 # phase 4h: the table-sharded path on two ranks at t = 2 against one rank,
 # full width on WECHAT_SCHEMA at the default min_rows_to_shard (1024)
 SHARDED_ROWS = 50_000
@@ -314,10 +357,17 @@ SHARDED_TABLES = ("authorid", "bgm_singer_id", "bgm_song_id", "feedid", "userid"
 PADDED_TABLES = {"feedid": (106_445, 106_446), "userid": (19_627, 19_628),
                  "bgm_singer_id": (17_501, 17_502)}
 # The bf16 Predictor against the f32 one (tests/test_serve.py's bar), and
-# the card's bf16 Predictor against the CPU's: on the card B1 and B2
-# compute in f32 what the CPU's plain versions compute in bf16, so the two
-# differ by bf16 rounding, held to the bar tests/test_torch_serve_extras.py
-# states for the port against JAX's bf16 Predictor.
+# the card's bf16 Predictor against the CPU's, held to the bar
+# tests/test_torch_serve_extras.py states for the port against JAX's bf16
+# Predictor. On the card B1 and B2 compute in f32 on the bf16 inputs
+# (rank_tpu's Pallas kernels run their products in f32), where the CPU's
+# plain versions compute in bf16; so the CPU's Predictor runs them as the card does
+# (``card_arithmetic_on_cpu``). Against the plain versions in bf16 the
+# difference is the plain versions' own bf16 rounding, which grows with B1's
+# depth 4D and passes the bar at D = 128 (phase 4l), while the card's own
+# plain path in bf16 stays close to the CPU's (``python
+# tests/torch_bf16_card_vs_cpu.py`` measures these gaps); it is recorded,
+# not checked.
 BF16_VS_F32_ATOL = 2e-2
 BF16_CARD_VS_CPU_ATOL = 1e-2
 # an exported artifact against the Predictor it came from, on the card
@@ -524,15 +574,10 @@ def build_kernels() -> None:
         check_tensor_cores(name)
 
 
-# kernels on the CUDA cores by design: B1's generic kernel, for the shapes
-# outside the tensor-core kernel's instantiations
-CUDA_CORE_KERNELS = ("din_attention_generic_kernel",)
-
-
 def check_tensor_cores(name: str) -> None:
     """Count the tensor-core instructions in the SASS of each kernel of a
     library (``cuobjdump``, beside ``nvcc`` in the toolkit); fail if a
-    kernel has none, ``CUDA_CORE_KERNELS`` apart."""
+    kernel has none."""
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(_build.library_path(name))],
                           capture_output=True, text=True, check=True, timeout=300).stdout
@@ -542,9 +587,10 @@ def check_tensor_cores(name: str) -> None:
         counts[kernel] = {op: len(re.findall(rf"\b{op}\b", function)) for op in ("HMMA", "HGMMA")}
     emit(phase="tensor_cores", library=name, sass_counts=counts)
     check(counts, f"{name}: no kernel found in the SASS")
+    if name == "din_attention":  # the generic kernel's (weights, keys) variants
+        generic = [k for k in counts if "din_attention_generic_kernel" in k]
+        check(len(generic) == 4, f"din_attention: generic kernel variants {generic}, want 4")
     for kernel, c in counts.items():
-        if any(k in kernel for k in CUDA_CORE_KERNELS):
-            continue
         check(c["HMMA"] + c["HGMMA"] > 0, f"{name}: {kernel} has no tensor-core instruction")
 
 
@@ -625,18 +671,36 @@ def launched_din_kernel(fn):
     return out, "din_attention_fwd" if tc else "din_attention_generic_fwd"
 
 
+def misaligned(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``x`` that starts 4 bytes past a 16-byte
+    boundary."""
+    buf = torch.empty(x.numel() + 4, dtype=x.dtype, device=x.device)
+    out = buf[1: 1 + x.numel()].view(x.shape)
+    out.copy_(x)
+    check(out.data_ptr() % 16 == 4 and out.is_contiguous(), "misaligned copy")
+    return out
+
+
 def check_din_kernel(gen: torch.Generator):
     """B1 against its plain version: the main paths' shapes and the other
     tensor-core instantiations at T = 50, then ``C2_DIN_SHAPES`` at B in
-    ``C2_B``. Returns the largest error at the main paths' shapes (D = 16,
-    B = 256, 1024 and 8192) and the largest error of each kernel variant
-    at the C2 shapes."""
-    worst, c2_worst = 0.0, {}
-    cases = [(b, 50, 16, (64, 32), "") for b in (1, 7) + TIMED_B]
-    cases += [(256, 50, d, (64, 32), "") for d in (8, 32, 64)]
-    cases += [(b, t, d, hidden, name) for b in C2_B for name, t, d, hidden in C2_DIN_SHAPES]
-    for b, t, d, hidden, c2 in cases:
+    ``C2_B``, then the generic kernel's ``GENERIC_DIN_CASES``. Returns the
+    largest error at the main paths' shapes (D = 16, B = 256, 1024 and
+    8192), the largest error of each kernel variant at the C2 shapes, and
+    the generic kernel's largest error at its cases. At T = 1024 a row
+    without softmax pools up to 1,024 raw-scored keys, so there, as at the
+    C2 shapes, the kernel may use the plain version's own distance from
+    f64 (``check_against_plain``)."""
+    worst, c2_worst, generic_worst = 0.0, {}, 0.0
+    cases = [(b, 50, 16, (64, 32), "", "") for b in (1, 7) + TIMED_B]
+    cases += [(256, 50, d, (64, 32), "", "") for d in (8, 32, 64)]
+    cases += [(b, t, d, hidden, name, "") for b in C2_B for name, t, d, hidden in C2_DIN_SHAPES]
+    cases += [(b, t, d, hidden, "", name or "generic")
+              for b, t, d, hidden, name in GENERIC_DIN_CASES]
+    for b, t, d, hidden, c2, generic in cases:
         q, k, lengths, params = din_inputs(b, gen, t=t, d=d, hidden=hidden)
+        if generic == "misaligned":
+            k = misaligned(k)
         for use_softmax in (False, True):
             got, kernel = launched_din_kernel(
                 lambda: din_kernels.din_attention_cuda(q, k, lengths, params, use_softmax))
@@ -646,17 +710,21 @@ def check_din_kernel(gen: torch.Generator):
             torch.cuda.synchronize()
             err = (got - want).abs().max().item()
             emit(phase="kernel_vs_plain", kernel=kernel, B=b, T=t, D=d, hidden=list(hidden),
-                 c2_shape=c2 or None, use_softmax=use_softmax, max_abs_err=err,
-                 max_abs_out=want.abs().max().item(), **errors_vs_f64(got, want, exact),
+                 c2_shape=c2 or None, generic_case=generic or None, use_softmax=use_softmax,
+                 max_abs_err=err, max_abs_out=want.abs().max().item(),
+                 **errors_vs_f64(got, want, exact),
                  lengths=lengths[: len(RAGGED_LENGTHS)].tolist())
-            check_against_plain(kernel, got, want, exact, bool(c2))
+            check_against_plain(kernel, got, want, exact, bool(c2) or generic == "T1024")
+            if generic:
+                check(kernel == "din_attention_generic_fwd", f"{generic} case ran {kernel}")
+                generic_worst = max(generic_worst, err)
             if b > 1:
                 check(torch.all(got[0] == 0), "a zero-length row must pool to zeros")
             if b >= 256 and (t, d, hidden) == (50, 16, (64, 32)):
                 worst = max(worst, err)
             if c2:
                 c2_worst[kernel] = max(c2_worst.get(kernel, 0.0), err)
-    return worst, c2_worst
+    return worst, c2_worst, generic_worst
 
 
 def check_cin_kernel(gen: torch.Generator) -> float:
@@ -700,7 +768,13 @@ def check_gradients(gen: torch.Generator) -> None:
     q, k, lengths, params = din_inputs(1024, gen)
     g = torch.randn(1024, 16, generator=gen).cuda()
     plain = lambda q, k, *p: din_kernels.din_attention_plain(q, k, lengths, p, True)  # noqa: E731
+    wq, wk, wlengths, wparams = din_inputs(1024, gen, d=DIN_WIDE_D)
+    wg = torch.randn(1024, DIN_WIDE_D, generator=gen).cuda()
     cases = {
+        "din_attention_generic_fwd/operator": (
+            lambda q, k, *p: din_kernels.din_attention_cuda_fn(q, k, wlengths, p, True),
+            lambda q, k, *p: din_kernels.din_attention_plain(q, k, wlengths, p, True),
+            (wq, wk, *wparams), wg),
         "din_attention_fwd": (
             lambda q, k, *p: din_kernels.DINAttentionFn.apply(
                 din_kernels.din_attention_cuda, True, q, k, lengths, *p),
@@ -719,7 +793,11 @@ def check_gradients(gen: torch.Generator) -> None:
         cases[f"cin_layer_fwd/layer{layer}/operator"] = (
             cin_kernels.cin_layer_cuda_fn_t, cin_kernels.cin_layer_plain_t, inputs, g)
     for name, (kernel_fn, plain_fn, inputs, g) in cases.items():
+        before = kernel_launches()
         got, got_grads = grads_of(kernel_fn, inputs, g)
+        if name.startswith("din_attention_generic_fwd"):
+            check(kernel_launches()["din_attention_generic_fwd"]
+                  == before["din_attention_generic_fwd"] + 1, f"{name} did not launch")
         want, want_grads = grads_of(plain_fn, inputs, g)
         torch.testing.assert_close(got, want, **TOL)
         errs = []
@@ -979,12 +1057,38 @@ def gathers(events):
     return sum(device_us(e) for e in picked), sorted({e.key[:80] for e in picked})
 
 
+@contextlib.contextmanager
+def card_arithmetic_on_cpu():
+    """B1's and B2's operators on CPU tensors computed as the card computes
+    them: the inputs cast to f32, the plain version, the result cast back to
+    the inputs' promoted dtype (the operators' CUDA implementations, with
+    the plain version in the kernel's place)."""
+    din_op, cin_op = din_kernels.din_attention, cin_kernels.cin_layer_t
+
+    def din(query, keys, lengths, params, use_softmax):
+        out = din_kernels.din_attention_plain(query.float(), keys.float(), lengths,
+                                              [p.float() for p in params], use_softmax)
+        return out.to(promoted_dtype(query, keys, *params))
+
+    def cin(xk_t, x0_t, w):
+        out = cin_kernels.cin_layer_plain_t(xk_t.float(), x0_t.float(), w.float())
+        return out.to(promoted_dtype(xk_t, x0_t, w))
+
+    din_kernels.din_attention, cin_kernels.cin_layer_t = din, cin
+    try:
+        yield
+    finally:
+        din_kernels.din_attention, cin_kernels.cin_layer_t = din_op, cin_op
+
+
 def serve_bf16(model: str, schema, cfg, state_dict, f32_pred, requests, kernel: str,
                per_request: int = 1) -> Predictor:
     """``Predictor(weights_dtype='bfloat16')`` on the card: ``kernel`` must
     launch ``per_request`` times a request, and every head must track the f32 Predictor to
-    ``BF16_VS_F32_ATOL`` and the CPU's bf16 Predictor to
-    ``BF16_CARD_VS_CPU_ATOL``."""
+    ``BF16_VS_F32_ATOL`` and the CPU's bf16 Predictor, with the kernels'
+    operators computed as on the card (``card_arithmetic_on_cpu``), to
+    ``BF16_CARD_VS_CPU_ATOL``. The distance to the CPU's bf16 Predictor with
+    the plain versions in bf16 is recorded."""
     pred = Predictor(schema, cfg, state_dict=state_dict, weights_dtype="bfloat16")
     cpu = Predictor(schema, cfg, state_dict=state_dict, weights_dtype="bfloat16", device="cpu")
     zero_launches()
@@ -993,13 +1097,17 @@ def serve_bf16(model: str, schema, cfg, state_dict, f32_pred, requests, kernel: 
     check(launches[kernel] == per_request * len(requests),
           f"{model} bf16 serving launched {kernel} {launches[kernel]} times")
     for n, heads in answers.items():
-        want_f32, want_cpu = f32_pred(requests[n]), cpu(requests[n])
+        want_f32, want_plain = f32_pred(requests[n]), cpu(requests[n])
+        with card_arithmetic_on_cpu():
+            want_cpu = cpu(requests[n])
         for head, got in heads.items():
             check(got.shape == (n,) and np.all(np.isfinite(got)), f"{model} bf16 {head}: {n} rows")
             err_f32 = float(np.max(np.abs(got - want_f32[head])))
             err_cpu = float(np.max(np.abs(got - want_cpu[head])))
+            err_plain = float(np.max(np.abs(got - want_plain[head])))
             emit(phase="serve_bf16", model=model, head=head, rows=n, max_abs_err_vs_f32=err_f32,
-                 max_abs_err_vs_cpu_bf16=err_cpu, launches=launches)
+                 max_abs_err_vs_cpu_bf16=err_cpu, max_abs_err_vs_cpu_plain_bf16=err_plain,
+                 launches=launches)
             np.testing.assert_allclose(got, want_f32[head], rtol=0, atol=BF16_VS_F32_ATOL)
             np.testing.assert_allclose(got, want_cpu[head], rtol=0, atol=BF16_CARD_VS_CPU_ATOL)
     return pred
@@ -1094,6 +1202,77 @@ def serve_c2_shapes(gen: torch.Generator, card: str) -> dict:
     want = {"din_attention_fwd": 1, "din_attention_generic_fwd": 1, "cin_layer_fwd": 2}
     check(launches == want, f"C2 serving launched {launches}, want {want}")
     return launches
+
+
+def din_wide_phase(card: str) -> dict:
+    """Phase 4l: DIN on ``din_schema(DIN_WIDE_D, 50)``, where B1 takes its
+    generic kernel. ``Trainer`` and ``StagedRunner`` (as ``parity.py``
+    drives them) train one epoch on ``DIN_ROWS`` synthetic rows and
+    evaluate once: the generic kernel must launch once a train and eval
+    step and no other kernel, the attention weights must move and eval AUC
+    pass 0.6. ``Predictor`` serves the trained weights for
+    ``ZOO_REQUEST_ROWS`` rows against the plain attention to 1e-5, at
+    bf16 (``serve_bf16``) and exported (``check_export``), each one launch
+    a request. Returns the phase's launches."""
+    kernel = "din_attention_generic_fwd"
+    schema = din_schema(DIN_WIDE_D, 50)
+    cfg = default_config("din")
+    check(din_kernels.kernel_for(DIN_WIDE_D, 64, 32) == kernel,
+          f"D = {DIN_WIDE_D} does not take {kernel}")
+    train, test = split_train_test(make_synthetic_dataset(schema, num_rows=DIN_ROWS, seed=SEED + 8))
+    trainer = Trainer(schema, cfg, TrainConfig(batch_size=parity.BATCH_SIZE, log_every=0),
+                      device="cuda")
+    runner = StagedRunner(trainer, train, test, parity.BATCH_SIZE)
+    zero_launches()
+    state = trainer.init_state()
+    attention = state["model"].attention
+    before = {name: p.detach().clone() for name, p in attention.named_parameters()}
+    t0 = time.perf_counter()
+    state, stats = runner.train_epoch(state, 1, trainer.cfg.seed)
+    ev = runner.evaluate(state, 1)
+    seconds = time.perf_counter() - t0
+    got = kernel_launches()
+    want = runner.train_steps + runner.eval_steps
+    moved = {name: (p.detach() - before[name]).abs().max().item()
+             for name, p in attention.named_parameters()}
+    emit(phase="din_wide", D=DIN_WIDE_D, rows=DIN_ROWS, train_steps=runner.train_steps,
+         eval_steps=runner.eval_steps, train_loss=float(stats["loss"]), eval_auc=float(ev["auc"]),
+         eval_loss=float(ev["loss"]), seconds=seconds, launches=got, want_launches=want,
+         attention_max_abs_change=moved, card=card)
+    check(got[kernel] == want and sum(got.values()) == want,
+          f"DIN at D = {DIN_WIDE_D} launched {got}, want {want} of {kernel} alone")
+    check(math.isfinite(float(stats["loss"])), f"DIN at D = {DIN_WIDE_D}: loss {stats['loss']}")
+    check(ev["auc"] > 0.6, f"DIN at D = {DIN_WIDE_D}: eval AUC {ev['auc']} is not above 0.6")
+    # b3 is left out, as in check_attention_moved: the softmax cancels it
+    check(all(moved[name] > 1e-3 for name in ("w1", "b1", "w2", "b2", "w3")),
+          f"attention weights that did not move in training: {moved}")
+    launches = got[kernel]
+
+    state_dict = state["model"].state_dict()
+    pred = Predictor(schema, cfg, state_dict=state_dict)
+    plain = Predictor(schema, cfg.replace(kernel_backend="jnp"), state_dict=state_dict)
+    data = make_synthetic_dataset(schema, num_rows=max(ZOO_REQUEST_ROWS), seed=SEED + 9)
+    requests = {n: {k: v[:n] for k, v in data.items() if k != "labels"} for n in ZOO_REQUEST_ROWS}
+    zero_launches()
+    answers = {n: pred(req)["score"] for n, req in requests.items()}
+    got = kernel_launches()
+    check(got[kernel] == len(requests) and sum(got.values()) == len(requests),
+          f"DIN at D = {DIN_WIDE_D} serving launched {got}")
+    launches += got[kernel]
+    for n, score in answers.items():
+        want_score = plain(requests[n])["score"]
+        err = float(np.max(np.abs(score - want_score)))
+        emit(phase="din_wide_serve", D=DIN_WIDE_D, rows=n, max_abs_err_vs_plain=err,
+             mean_score=float(score.mean()), card=card)
+        # a trained model may saturate the sigmoid of a row to 0 or 1 in f32
+        check(score.shape == (n,) and np.all(np.isfinite(score)) and np.all((score >= 0) & (score <= 1)),
+              f"{n} rows: scores not finite, of the wrong shape or outside [0, 1]")
+        np.testing.assert_allclose(score, want_score, **TOL)
+    serve_bf16("din_wide", schema, cfg, state_dict, pred, requests, kernel)
+    launches += len(requests)
+    got = check_export("din_wide", pred)
+    check(got[kernel] == 1 and sum(got.values()) == 1, f"the loaded wide DIN artifact launched {got}")
+    return {kernel: launches + 1}
 
 
 def serve_against_cpu(model: str, cfg, model_dir: str, requests, atol: float, rtol: float,
@@ -2127,7 +2306,7 @@ def main(argv=None) -> int:
 
     # 3. kernels against their plain versions
     gen = torch.Generator().manual_seed(SEED)
-    din_err, din_c2_err = check_din_kernel(gen)
+    din_err, din_c2_err, generic_err = check_din_kernel(gen)
     cin_err = check_cin_kernel(gen)
     check_bf16_inputs(gen)
     check_gradients(gen)
@@ -2145,6 +2324,7 @@ def main(argv=None) -> int:
             train_and_serve_zoo(workdir, card)
             train_and_serve_multitask(workdir, card)
             file_launches, file_b1 = train_from_files(workdir, card)
+            wide_launches = din_wide_phase(card)
             quality_launches = quality_phase(workdir, card)
             fullscale_launches = fullscale_phase(workdir, card, log_build)
         finally:
@@ -2177,10 +2357,13 @@ def main(argv=None) -> int:
          + fullscale_launches["din_attention_fwd"],
          max(din_err, file_err)),
         # the generic B1 kernel, launched on slice 6's path (DIN at D = 12)
-        ("din_attention_generic_fwd", ("din_attention_generic_fwd", "D12"),
+        # and phase 4l's (DIN at D = 128, trained and served), timed at
+        # D = 128
+        ("din_attention_generic_fwd", ("din_attention_generic_fwd", "D128"),
          "rank_tpu_torch/ops/kernels/csrc/din_attention.cu",
          "rank_tpu/ops/pallas/din_attention.py:156",
-         c2_launches["din_attention_generic_fwd"], din_c2_err["din_attention_generic_fwd"]),
+         c2_launches["din_attention_generic_fwd"] + wide_launches["din_attention_generic_fwd"],
+         max(din_c2_err["din_attention_generic_fwd"], generic_err)),
         ("cin_layer_fwd", ("cin_layer_fwd/layer1", 1024), "rank_tpu_torch/ops/kernels/csrc/cin.cu",
          "rank_tpu/ops/pallas/cin.py:140",
          cin_launches + file_launches["cin_layer_fwd"] + sharded_launches["cin_layer_fwd"]

@@ -32,19 +32,20 @@
 // hi*hi, each k-step's sum added in f32, are as close as an f32 product.
 //
 // Two kernels, chosen by the wrapper (ops/kernels/din_attention.py) by
-// shape, each with its own launch count:
-//   * din_attention_fwd_kernel<D>, on the tensor cores, for D in {8, 16,
-//     32, 64} and hidden widths (64, 32), the widths DINAttention is built
-//     with (the main path's D = 16 among them), and any T;
-//   * din_attention_generic_kernel, f32 FMAs on the CUDA cores, for every
-//     other D >= 1 and hidden widths (H1, H2) >= 1, and any T. A block
-//     owns a row; its weights are read through L1/L2 rather than staged,
-//     so no width has to fit in shared memory with them.
-// Both stream a row's valid keys through shared memory in tiles of 16
-// timesteps (a 2-stage cp.async ring a warp in the first), so T is not
-// bounded by shared memory. Under use_softmax they keep an online max and
-// sum and rescale the pooled sum at each tile; the pooled sum is kept in
-// f64 across tiles, so that a long row's sum is not the error's source.
+// shape, each with its own launch count, both on the tensor cores:
+//   * din_attention_fwd_kernel<D>, for D in {8, 16, 32, 64} and hidden
+//     widths (64, 32), the widths DINAttention is built with (the main
+//     path's D = 16 among them), and any T;
+//   * din_attention_generic_kernel<Store, Staged>, for every other
+//     D >= 1 and hidden widths (H1, H2) >= 1, and any T: the same design
+//     with the widths zero-padded to the tensor cores' tiles, layer 1 in
+//     chunks of h1 columns, and the weights staged where they fit (its
+//     comment below).
+// Both stream a row's valid keys through a 2-stage cp.async ring a warp
+// in tiles of 16 timesteps, so T is not bounded by shared memory. Under
+// use_softmax they keep an online max and sum and rescale the pooled sum
+// at each tile; the pooled sum is kept in f64 across tiles, so that a
+// long row's sum is not the error's source.
 //
 // Design of the tensor-core kernel, against what held the earlier
 // one-thread-a-timestep kernel back:
@@ -135,6 +136,45 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ah)[4
   mma_tf32(t, ah, b.x, b.y);
 #pragma unroll
   for (int e = 0; e < 4; ++e) d[e] += t[e];
+}
+
+// mma_tf32 where `on` (the same in every lane) holds, else nothing. The
+// product is predicated rather than branched around, so that the n-tiles
+// of a width known only at run time stay in one basic block: behind a
+// branch, one tile's chain of three dependent products cannot overlap the
+// next tile's.
+__device__ __forceinline__ void mma_tf32_if(float (&d)[4], const uint32_t (&a)[4],
+                                            uint32_t b0, uint32_t b1, bool on) {
+  asm("{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %10, 0;\n\t"
+      "@p mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n\t}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "r"((int)on));
+}
+
+// mma_3xtf32 for four n-tiles, d<i> += a * b[i] for the tiles i < n_on
+// (the rest unchanged): the same three products a tile in the same order,
+// each tile's into a zeroed fragment added to d<i> in f32, but issued a
+// round of four tiles at a time, so that the four tiles' dependent chains
+// of three products overlap rather than follow each other.
+__device__ __forceinline__ void mma_3xtf32_x4(float (&d0)[4], float (&d1)[4], float (&d2)[4],
+                                              float (&d3)[4], const uint32_t (&ah)[4],
+                                              const uint32_t (&al)[4], const uint4 (&b)[4],
+                                              int n_on) {
+  float t[4][4] = {};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) mma_tf32_if(t[i], al, b[i].x, b[i].y, i < n_on);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) mma_tf32_if(t[i], ah, b[i].z, b[i].w, i < n_on);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) mma_tf32_if(t[i], ah, b[i].x, b[i].y, i < n_on);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    d0[e] += t[0][e];
+    d1[e] += t[1][e];
+    d2[e] += t[2][e];
+    d3[e] += t[3][e];
+  }
 }
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
@@ -435,138 +475,465 @@ cudaError_t launch(const float* q, const float* keys, const int* lengths,
   return cudaGetLastError();
 }
 
-// The generic kernel: a block of kGenWarps warps owns a row at a time.
-// Per tile of up to kTile valid timesteps: the keys are staged; layer 1
-// ([k | q*k] @ w1kp, the same fold as above, plus q @ w1q + b1 once a
-// row) has a thread own an output column for every timestep of the tile,
-// reading each weight once a tile; layer 2 and the score have a thread
-// own a column of h2 and add its share of each score, summed over the
-// block; warp 0 runs the online softmax; the pool has a thread own a
-// column d. Weights are read through L1/L2 (__ldg), not staged.
-constexpr int kGenWarps = 4, kGenThreads = kGenWarps * 32;
+// The generic kernel: the tensor-core kernel's design at any D and hidden
+// widths (H1, H2), with the widths it has no instantiation for padded to
+// what the tensor cores take, exactly. It replaces the same TPU kernel and
+// is bound the same way, by operations: the folded first layer (4*D*H1
+// FLOP a valid timestep) and the second (2*H1*H2); at D = 128, B = 1024,
+// T = 50 about 0.006 ms through the tensor cores. With one warp a row it
+// stays far from that, bound by the latency of a row's tiles (chip_smoke.py
+// times it beside its bounds). Per batch row, as above:
+//   * D is padded to DP (a multiple of 4), so that the folded depth
+//     K1 = 2*DP is a multiple of 8, and H1, H2 to multiples of 8 (H1P,
+//     H2P). The padded rows and columns of w1kp, w1q and w2 and the padded
+//     entries of b1, b2 and w3 are zero, and so are the padded key and
+//     query columns: a padded h1 column is relu(0) = 0 and a padded h2
+//     column scores relu(0) * 0 = 0, so the padding changes no sum. The
+//     kernel pads as it stages, so the wrapper makes no padded copies;
+//   * a k-step of layer 1 may straddle the [k | q*k] seam (DP = 4 mod 8):
+//     each of a lane's two A columns picks its half on its own;
+//   * layer 1 runs in chunks of 64 h1 columns (8 n-tiles); each chunk's
+//     ReLU'd accumulators are the A operand of the layer-2 k-steps for the
+//     same 64 rows of w2 (the accumulator-as-A permutation above), so
+//     only h2 (16 x 64 columns) is held across chunks. Past 64 h2 columns
+//     layer 2 runs in passes of 64, each summing its share of the score,
+//     layer 1 recomputed a pass: registers are bounded at any width;
+//   * the weights are folded, padded and staged once a block where they
+//     fit (kWFrag: TF32 hi/lo fragments as above; kWF32: the same order in
+//     f32, split at load, half the bytes), each thread reading in batches
+//     of 8 entries, and read through L1/L2 and folded at load where they
+//     do not (kWGlobal);
+//   * a warp owns a row at a time: the valid keys stream through a cp.async
+//     ring of 16-step tiles, 2 stages (the next tile in flight while one
+//     is scored) or 1 (copied after it), with 16-byte copies where D*4
+//     bytes and the base allow it, else 4-byte, and padded columns
+//     zero-filled once; where not even a 1-stage ring fits (DP past about
+//     3,000), the keys are read through L1/L2. The launcher takes the first
+//     of (fragments, 2), (f32, 2), (fragments, 1), (f32, 1), (L1/L2, 2),
+//     (L1/L2, 1) that fits the warps B needs (up to 8 an SM), else the one
+//     that fits most: at D = 128, B = 1024 that is f32 weights and one
+//     stage, 8 warps, against 6 with two stages;
+//   * layer 1's and layer 2's n-tiles go in groups of four, each group's
+//     twelve products issued tile by tile a round (mma_3xtf32_x4), the
+//     tiles past a width predicated off;
+//   * the online softmax runs over the warp by shuffles, the pooled sum of
+//     the real D columns is kept in f64 in shared memory across tiles, the
+//     lanes split over (timestep group, column) where D < 32. No block
+//     barrier follows the staging.
+constexpr int kGenWarps = 8;  // a block: all stage the weights, R <= 8 take rows
+constexpr int kChunk = 64;  // h1 columns a layer-1 chunk, h2 columns a layer-2 pass
+enum WeightStore { kWFrag = 0, kWF32 = 1, kWGlobal = 2 };
 
-__global__ void __launch_bounds__(kGenThreads)
+struct GenDims {
+  int D, DP, H1, H1P, H2, H2P, K1, SK;
+};
+
+GenDims gen_dims(int D, int H1, int H2) {
+  GenDims g;
+  g.D = D;
+  g.DP = (D + 3) / 4 * 4;
+  g.H1 = H1;
+  g.H1P = (H1 + 7) / 8 * 8;
+  g.H2 = H2;
+  g.H2P = (H2 + 7) / 8 * 8;
+  g.K1 = 2 * g.DP;
+  // key rows of stride SK, SK/4 odd: a fragment reads (rows g, column
+  // tig) fall in banks SK*g + tig, all 32 distinct
+  g.SK = (g.DP / 4) % 2 ? g.DP : g.DP + 4;
+  return g;
+}
+
+// Shared memory of the staged weights, in 4-byte words: w1kp's and w2's b
+// fragments (4 words a lane and k-step for kWFrag, 2 for kWF32), w1q
+// (DP, H1P), b1 (H1P), b2 and w3 (H2P).
+__host__ __device__ inline size_t gen_weight_words(int store, const GenDims& g) {
+  if (store == kWGlobal) return 0;
+  const size_t b_words = (size_t)g.K1 * g.H1P + (size_t)g.H1P * g.H2P;
+  return (store == kWFrag ? 2 : 1) * b_words + (size_t)g.DP * g.H1P + g.H1P + 2 * (size_t)g.H2P;
+}
+
+// A warp's shared memory, in words: the pooled sum (DP doubles), the key
+// ring (`stages` stages of (kTile, SK): 2, 1, or 0 where the keys are read
+// through L1/L2), scores (kTile), q (DP) and q @ w1q + b1 (H1P). Each part
+// is a multiple of 4 words (16 bytes).
+__host__ __device__ inline size_t gen_warp_words(int stages, const GenDims& g) {
+  return 2 * (size_t)g.DP + stages * (size_t)kTile * g.SK + kTile + g.DP + g.H1P;
+}
+
+template <int Store, bool Staged>
+__global__ void __launch_bounds__(kGenWarps * 32)
 din_attention_generic_kernel(const float* __restrict__ q, const float* __restrict__ keys,
                              const int* __restrict__ lengths, const float* __restrict__ w1,
                              const float* __restrict__ b1,
                              const float* __restrict__ w2, const float* __restrict__ b2,
                              const float* __restrict__ w3, const float* __restrict__ b3,
-                             float* __restrict__ out, int B, int T, int D, int H1, int H2,
-                             int tt, int use_softmax) {
+                             float* __restrict__ out, int B, int T, GenDims dm, int R,
+                             int stages, int use_softmax, int vec16) {
+  const int D = dm.D, DP = dm.DP, H1 = dm.H1, H1P = dm.H1P, H2 = dm.H2, H2P = dm.H2P;
+  const int SK = dm.SK, ksteps = dm.K1 / 8;
+  constexpr int kB = Store == kWFrag ? 4 : 2;  // words of a lane's b fragment
   extern __shared__ __align__(16) float smem[];
-  double* acc = reinterpret_cast<double*>(smem);  // (D) pooled sum
-  float* ks = reinterpret_cast<float*>(acc + D);  // (tt, D) keys of the tile
-  float* h1s = ks + tt * D;                       // (tt, H1) layer 1
-  float* qs = h1s + tt * H1;                      // (D) query
-  float* qh = qs + D;                             // (H1) q @ w1q + b1
-  float* part = qh + H1;                          // (warps, kTile) score shares
-  float* wt = part + kGenWarps * kTile;           // (kTile) weights of the tile
-  float* stat = wt + kTile;                       // rescale factor, softmax sum
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const float sqrt_d = sqrtf((float)D);
-  const float bias3 = __ldg(b3);
+  float* w1s = smem;                           // (K1/8, H1P, 4) b fragments of w1kp
+  float* w2s = w1s + (size_t)kB * 4 * ksteps * H1P;  // (H1P/8, H2P, 4) of w2
+  float* w1qs = w2s + (size_t)kB * H1P / 2 * H2P;    // (DP, H1P)
+  float* b1s = w1qs + (size_t)DP * H1P;
+  float* b2s = b1s + H1P;
+  float* w3s = b2s + H2P;
 
-  for (int row = blockIdx.x; row < B; row += gridDim.x) {
+  // The folded, zero-padded operands: row k of w1kp is w1b[k] - w1c[k]
+  // for k < D, w1d[k - DP] for DP <= k < DP + D, else 0. The reads are
+  // unconditional (a padded entry reads entry 0 and is then zeroed), so
+  // that an unrolled staging loop keeps all its loads in flight.
+  auto w1kp_at = [&](int k, int n) -> float {
+    const bool top = k < DP;
+    const int r = top ? k : k - DP;
+    const bool ok = r < D && n < H1;
+    const size_t rc = ok ? r : 0, nc = ok ? n : 0;
+    const float x = __ldg(w1 + ((top ? D : 3 * D) + rc) * H1 + nc);
+    const float y = __ldg(w1 + (2 * D + rc) * H1 + nc);
+    return ok ? (top ? x - y : x) : 0.f;
+  };
+  auto w1q_at = [&](int d, int n) -> float {
+    const bool ok = d < D && n < H1;
+    const size_t dc = ok ? d : 0, nc = ok ? n : 0;
+    const float x = __ldg(w1 + dc * H1 + nc), y = __ldg(w1 + (2 * D + dc) * H1 + nc);
+    return ok ? x + y : 0.f;
+  };
+  auto w2_at = [&](int r, int n) -> float {
+    const bool ok = r < H1 && n < H2;
+    const float x = __ldg(w2 + (ok ? (size_t)r * H2 + n : 0));
+    return ok ? x : 0.f;
+  };
+  // The b fragment of layer-1 k-step s, column n: rows 8s + tig and
+  // 8s + tig + 4 of w1kp; of layer-2 k-step j: rows 8j + 2*tig and
+  // 8j + 2*tig + 1 of w2 (the permuted k of the accumulator-as-A).
+  auto load_b = [&](const float* base, int idx) -> uint4 {
+    if constexpr (Store == kWFrag) {
+      return reinterpret_cast<const uint4*>(base)[idx];
+    } else {
+      const float2 v = reinterpret_cast<const float2*>(base)[idx];
+      return b_fragment(v.x, v.y);
+    }
+  };
+  auto w1_b = [&](int s, int n, int tig) -> uint4 {
+    if constexpr (Store == kWGlobal)
+      return b_fragment(w1kp_at(8 * s + tig, n), w1kp_at(8 * s + tig + 4, n));
+    else
+      return load_b(w1s, (s * H1P + n) * 4 + tig);
+  };
+  auto w2_b = [&](int j, int n, int tig) -> uint4 {
+    if constexpr (Store == kWGlobal)
+      return b_fragment(w2_at(8 * j + 2 * tig, n), w2_at(8 * j + 2 * tig + 1, n));
+    else
+      return load_b(w2s, (j * H2P + n) * 4 + tig);
+  };
+
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  if constexpr (Store != kWGlobal) {
+    // in batches of kStage entries a thread, every read of a batch issued
+    // before its first store, so that each thread keeps 16 to 32 reads of
+    // L2 in flight: entry by entry, the reads of a block's 100 KB of
+    // weights at D = 128 followed each other
+    constexpr int kStage = 8;
+    auto stage = [&](int count, auto&& read, auto&& write) {
+      for (int i0 = tid; i0 < count; i0 += kStage * nthreads) {
+        float2 v[kStage];
+#pragma unroll
+        for (int u = 0; u < kStage; ++u) v[u] = read(min(i0 + u * nthreads, count - 1));
+#pragma unroll
+        for (int u = 0; u < kStage; ++u)
+          if (i0 + u * nthreads < count) write(i0 + u * nthreads, v[u]);
+      }
+    };
+    auto write_b = [&](float* base, int i, float2 v) {
+      if constexpr (Store == kWFrag)
+        reinterpret_cast<uint4*>(base)[i] = b_fragment(v.x, v.y);
+      else
+        reinterpret_cast<float2*>(base)[i] = v;
+    };
+    stage(
+        ksteps * H1P * 4,
+        [&](int i) {
+          const int t = i & 3, n = (i >> 2) % H1P, s = (i >> 2) / H1P;
+          return make_float2(w1kp_at(8 * s + t, n), w1kp_at(8 * s + t + 4, n));
+        },
+        [&](int i, float2 v) { write_b(w1s, i, v); });
+    stage(
+        H1P / 8 * H2P * 4,
+        [&](int i) {
+          const int t = i & 3, n = (i >> 2) % H2P, j = (i >> 2) / H2P;
+          return make_float2(w2_at(8 * j + 2 * t, n), w2_at(8 * j + 2 * t + 1, n));
+        },
+        [&](int i, float2 v) { write_b(w2s, i, v); });
+    stage(
+        DP * H1P, [&](int i) { return make_float2(w1q_at(i / H1P, i % H1P), 0.f); },
+        [&](int i, float2 v) { w1qs[i] = v.x; });
+    for (int i = tid; i < H1P; i += nthreads) b1s[i] = i < H1 ? b1[i] : 0.f;
+    for (int i = tid; i < H2P; i += nthreads) {
+      b2s[i] = i < H2 ? b2[i] : 0.f;
+      w3s[i] = i < H2 ? w3[i] : 0.f;
+    }
+  }
+  const float bias3 = b3[0];
+  const float sqrt_d = sqrtf((float)D);
+  __syncthreads();
+
+  const int lane = tid & 31, warp = tid >> 5;
+  if (warp >= R) return;  // no __syncthreads follows
+  const int g = lane >> 2, tig = lane & 3;
+  double* acc = reinterpret_cast<double*>(smem + gen_weight_words(Store, dm) +
+                                          warp * gen_warp_words(stages, dm));  // (DP)
+  float* ks = reinterpret_cast<float*>(acc + DP);  // `stages` of (kTile, SK) keys
+  float* sc = ks + stages * kTile * SK;            // (kTile) scores, then weights
+  float* qs = sc + kTile;                          // (DP) query, zero past D
+  float* qh = qs + DP;                             // (H1P) q @ w1q + b1
+  if (Staged) {  // the padded key columns; the copies never write them
+    for (int i = lane; i < stages * kTile * (DP - D); i += 32)
+      ks[(i / (DP - D)) * SK + D + i % (DP - D)] = 0.f;
+  }
+  // pool: lanes split over (timestep group, column): pw lanes a group
+  int pw = 1;
+  while (pw < D && pw < 32) pw <<= 1;
+  const int ng = 32 / pw, tg = lane / pw, dl = lane % pw;
+
+  for (int row = blockIdx.x * R + warp; row < B; row += gridDim.x * R) {
     const int len = min(max(lengths[row], 0), T);
     float* orow = out + (size_t)row * D;
     if (len == 0) {  // every weight is zero in both modes
-      for (int d = tid; d < D; d += kGenThreads) orow[d] = 0.f;
+      for (int d = lane; d < D; d += 32) orow[d] = 0.f;
       continue;
     }
-    __syncthreads();  // the previous row is done with the buffers
-    for (int d = tid; d < D; d += kGenThreads) {
-      qs[d] = q[(size_t)row * D + d];
-      acc[d] = 0.0;
-    }
-    __syncthreads();
-    for (int j = tid; j < H1; j += kGenThreads) {
-      float a = __ldg(b1 + j);
-      for (int d = 0; d < D; ++d)
-        a = fmaf(qs[d], __ldg(w1 + (size_t)d * H1 + j) + __ldg(w1 + (size_t)(2 * D + d) * H1 + j), a);
-      qh[j] = a;
-    }
-    float m = len < T ? kMaskNeg / sqrt_d : -INFINITY, sum = 0.f;  // warp 0's
+    __syncwarp();  // the previous row is done with ks, sc, qs, qh and acc
     const float* kg = keys + (size_t)row * T * D;
-    for (int t0 = 0; t0 < len; t0 += tt) {
-      const int nv = min(tt, len - t0);
-      __syncthreads();  // the previous tile is done with ks, h1s and wt
-      for (int i = tid; i < tt * D; i += kGenThreads)
-        ks[i] = i < nv * D ? kg[(size_t)t0 * D + i] : 0.f;
-      __syncthreads();
-      for (int j = tid; j < H1; j += kGenThreads) {
-        float a[kTile];
+    // Only the valid keys are copied: rows past len of the last tile are
+    // stale, but rows of a product are independent and are not read.
+    auto copy_tile = [&](int mt) {
+      float* dst = ks + (stages == 2 ? mt & 1 : 0) * kTile * SK;
+      const int t0 = mt * kTile, n = min(kTile, len - t0);
+      const float* src = kg + (size_t)t0 * D;
+      if (vec16) {
+        const int per = D / 4;
+        for (int i = lane; i < n * per; i += 32) {
+          const int t = i / per, c = (i % per) * 4;
+          cp_async16(dst + t * SK + c, src + (size_t)t * D + c);
+        }
+      } else {
+        for (int i = lane; i < n * D; i += 32) cp_async4(dst + (i / D) * SK + i % D, src + i);
+      }
+    };
+    if (Staged) {
+      copy_tile(0);
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+    }
+    for (int d = lane; d < DP; d += 32) qs[d] = d < D ? q[(size_t)row * D + d] : 0.f;
+    for (int d = lane; d < D; d += 32) acc[d] = 0.0;
+    __syncwarp();
+    for (int j = lane; j < H1P; j += 32) {  // four partial sums over DP
+      float a[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int d = 0; d < DP; d += 4) {
 #pragma unroll
-        for (int t = 0; t < kTile; ++t) a[t] = 0.f;
-        for (int d = 0; d < D; ++d) {
-          const float wk = __ldg(w1 + (size_t)(D + d) * H1 + j) - __ldg(w1 + (size_t)(2 * D + d) * H1 + j);
-          const float wq = __ldg(w1 + (size_t)(3 * D + d) * H1 + j), qd = qs[d];
+        for (int e = 0; e < 4; ++e) {
+          if constexpr (Store == kWGlobal)
+            a[e] = fmaf(qs[d + e], w1q_at(d + e, j), a[e]);
+          else
+            a[e] = fmaf(qs[d + e], w1qs[(d + e) * H1P + j], a[e]);
+        }
+      }
+      float bias;
+      if constexpr (Store == kWGlobal)
+        bias = j < H1 ? b1[j] : 0.f;
+      else
+        bias = b1s[j];
+      qh[j] = bias + ((a[0] + a[1]) + (a[2] + a[3]));
+    }
+
+    float m = len < T ? kMaskNeg / sqrt_d : -INFINITY, sum = 0.f;
+    const int tiles = (len + kTile - 1) / kTile;
+    for (int mt = 0; mt < tiles; ++mt) {
+      const int nv = min(kTile, len - mt * kTile);
+      const float* kt;
+      if (Staged) {
+        if (stages == 2) {  // tile mt + 1 in flight while mt is scored
+          if (mt + 1 < tiles) copy_tile(mt + 1);
+          asm volatile("cp.async.commit_group;\n" ::: "memory");  // one group a tile
+          asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // tile mt landed
+        } else {  // tile mt was copied at the end of tile mt - 1
+          asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+        }
+        kt = ks + (stages == 2 ? mt & 1 : 0) * kTile * SK;
+      } else {
+        kt = kg + (size_t)mt * kTile * D;
+      }
+      __syncwarp();
+      // key r (< kTile) of the tile, column d (< DP); zero past D
+      auto key = [&](int r, int d) -> float {
+        if constexpr (Staged) return kt[r * SK + d];
+        else return d < D ? __ldg(kt + (size_t)min(r, nv - 1) * D + d) : 0.f;
+      };
+
+      float s0 = 0.f, s1 = 0.f;  // the score's share of this lane's h2 columns
+      for (int c2 = 0; c2 < H2P; c2 += kChunk) {
+        const int n2t = min(kChunk, H2P - c2) / 8;
+        float h2[8][4];
 #pragma unroll
-          for (int t = 0; t < kTile; ++t) {
-            if (t < tt) {
-              const float k = ks[t * D + d];
-              a[t] = fmaf(qd * k, wq, fmaf(k, wk, a[t]));
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) h2[nt][e] = 0.f;
+        for (int c1 = 0; c1 < H1P; c1 += kChunk) {
+          const int n1t = min(kChunk, H1P - c1) / 8;
+          // layer 1: (16 x K1) [k | q*k] @ w1kp[:, c1 : c1 + 64]
+          float h1[8][4];
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) h1[nt][e] = 0.f;
+          for (int s = 0; s < ksteps; ++s) {
+            const int ca = 8 * s + tig, cb = ca + 4;  // the lane's two A columns
+            const bool qa = ca >= DP, qb = cb >= DP;  // in the q*k half
+            const int da = qa ? ca - DP : ca, db = qb ? cb - DP : cb;
+            float a[4] = {key(g, da), key(g + 8, da), key(g, db), key(g + 8, db)};
+            if (qa) {
+              a[0] *= qs[da];
+              a[1] *= qs[da];
+            }
+            if (qb) {
+              a[2] *= qs[db];
+              a[3] *= qs[db];
+            }
+            uint32_t ah[4], al[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) split_tf32(a[e], ah[e], al[e]);
+#pragma unroll
+            for (int grp = 0; grp < 2; ++grp) {  // n-tiles 4*grp .. 4*grp + 3
+              if (grp == 1 && n1t <= 4) break;
+              uint4 b[4];
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {  // past the chunk: a column of it
+                const int nt = 4 * grp + i;
+                b[i] = w1_b(s, c1 + (nt < n1t ? nt : 0) * 8 + g, tig);
+              }
+              mma_3xtf32_x4(h1[4 * grp], h1[4 * grp + 1], h1[4 * grp + 2], h1[4 * grp + 3], ah,
+                            al, b, n1t - 4 * grp);
+            }
+          }
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt) {
+            if (nt < n1t) {
+              const int c = c1 + nt * 8 + 2 * tig;
+              const float qa = qh[c], qb = qh[c + 1];
+              h1[nt][0] = fmaxf(h1[nt][0] + qa, 0.f);
+              h1[nt][1] = fmaxf(h1[nt][1] + qb, 0.f);
+              h1[nt][2] = fmaxf(h1[nt][2] + qa, 0.f);
+              h1[nt][3] = fmaxf(h1[nt][3] + qb, 0.f);
+            }
+          }
+          // layer 2: h1[:, c1 : c1 + 64] @ w2[c1 : c1 + 64, c2 : c2 + 64],
+          // k-step j from accumulator tile j
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            if (j == 4 && n1t <= 4) break;
+            uint32_t ah[4], al[4];
+            split_tf32(h1[j][0], ah[0], al[0]);  // (row g,     k 2*tig)
+            split_tf32(h1[j][2], ah[1], al[1]);  // (row g + 8, k 2*tig)
+            split_tf32(h1[j][1], ah[2], al[2]);  // (row g,     k 2*tig + 1)
+            split_tf32(h1[j][3], ah[3], al[3]);  // (row g + 8, k 2*tig + 1)
+            const bool on = j < n1t;
+            const int ks2 = c1 / 8 + (on ? j : 0);
+#pragma unroll
+            for (int grp = 0; grp < 2; ++grp) {  // h2 n-tiles 4*grp .. 4*grp + 3
+              if (grp == 1 && n2t <= 4) break;
+              uint4 b[4];
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                const int nt = 4 * grp + i;
+                b[i] = w2_b(ks2, c2 + (nt < n2t ? nt : 0) * 8 + g, tig);
+              }
+              mma_3xtf32_x4(h2[4 * grp], h2[4 * grp + 1], h2[4 * grp + 2], h2[4 * grp + 3], ah,
+                            al, b, on ? n2t - 4 * grp : 0);
             }
           }
         }
-        const float base = qh[j];
+        // the score's share: relu(h2 + b2) . w3 over this pass's columns
 #pragma unroll
-        for (int t = 0; t < kTile; ++t)
-          if (t < tt) h1s[t * H1 + j] = fmaxf(a[t] + base, 0.f);
-      }
-      __syncthreads();
-      float s[kTile];
-#pragma unroll
-      for (int t = 0; t < kTile; ++t) s[t] = 0.f;
-      for (int n = tid; n < H2; n += kGenThreads) {
-        float a[kTile];
-#pragma unroll
-        for (int t = 0; t < kTile; ++t) a[t] = 0.f;
-        for (int j = 0; j < H1; ++j) {
-          const float w = __ldg(w2 + (size_t)j * H2 + n);
-#pragma unroll
-          for (int t = 0; t < kTile; ++t)
-            if (t < tt) a[t] = fmaf(h1s[t * H1 + j], w, a[t]);
+        for (int nt = 0; nt < 8; ++nt) {
+          if (nt < n2t) {
+            const int c = c2 + nt * 8 + 2 * tig;
+            float ba, bb, wa, wb;
+            if constexpr (Store == kWGlobal) {
+              ba = c < H2 ? b2[c] : 0.f;
+              bb = c + 1 < H2 ? b2[c + 1] : 0.f;
+              wa = c < H2 ? w3[c] : 0.f;
+              wb = c + 1 < H2 ? w3[c + 1] : 0.f;
+            } else {
+              ba = b2s[c], bb = b2s[c + 1], wa = w3s[c], wb = w3s[c + 1];
+            }
+            s0 = fmaf(fmaxf(h2[nt][0] + ba, 0.f), wa, s0);
+            s0 = fmaf(fmaxf(h2[nt][1] + bb, 0.f), wb, s0);
+            s1 = fmaf(fmaxf(h2[nt][2] + ba, 0.f), wa, s1);
+            s1 = fmaf(fmaxf(h2[nt][3] + bb, 0.f), wb, s1);
+          }
         }
-        const float bn = __ldg(b2 + n), wn = __ldg(w3 + n);
-#pragma unroll
-        for (int t = 0; t < kTile; ++t) s[t] = fmaf(fmaxf(a[t] + bn, 0.f), wn, s[t]);
       }
-#pragma unroll
-      for (int t = 0; t < kTile; ++t) {
-        const float v = warp_sum(s[t]);
-        if (lane == 0) part[warp * kTile + t] = v;
+      s0 += __shfl_xor_sync(kFull, s0, 1);
+      s0 += __shfl_xor_sync(kFull, s0, 2);
+      s1 += __shfl_xor_sync(kFull, s1, 1);
+      s1 += __shfl_xor_sync(kFull, s1, 2);
+      if (tig == 0) {
+        sc[g] = s0 + bias3;
+        sc[g + 8] = s1 + bias3;
       }
-      __syncthreads();
-      if (warp == 0) {
-        float score = 0.f;
-        if (lane < nv) {
-          for (int w = 0; w < kGenWarps; ++w) score += part[w * kTile + lane];
-          score += bias3;
-        }
-        float w = lane < nv ? score : 0.f, scale = 1.f;
-        if (use_softmax) scale = softmax_tile(score, lane, nv, sqrt_d, m, sum, w);
-        if (lane < kTile) wt[lane] = w;
-        if (lane == 0) stat[0] = scale;
+      __syncwarp();
+
+      // weights: the raw scores, or the online softmax's exp
+      float scale = 1.f;
+      if (use_softmax) {
+        float w;
+        scale = softmax_tile(lane < kTile ? sc[lane] : 0.f, lane, nv, sqrt_d, m, sum, w);
+        __syncwarp();
+        if (lane < nv) sc[lane] = w;
+        __syncwarp();
       }
-      __syncthreads();
-      const double scale = stat[0];
-      for (int d = tid; d < D; d += kGenThreads) {
+      for (int d0 = 0; d0 < D; d0 += pw) {
+        const int d = d0 + dl;
         float p = 0.f;
-        for (int t = 0; t < nv; ++t) p = fmaf(wt[t], ks[t * D + d], p);
-        acc[d] = acc[d] * scale + p;
+        if (d < D) {
+#pragma unroll 4
+          for (int t = tg; t < nv; t += ng) p = fmaf(sc[t], key(t, d), p);
+        }
+        for (int off = pw; off < 32; off <<= 1) p += __shfl_xor_sync(kFull, p, off);
+        if (tg == 0 && d < D) acc[d] = acc[d] * scale + p;
+      }
+      __syncwarp();  // done with this stage and sc before they are refilled
+      if (Staged && stages == 1 && mt + 1 < tiles) {
+        copy_tile(mt + 1);
+        asm volatile("cp.async.commit_group;\n" ::: "memory");
       }
     }
-    if (tid == 0) stat[1] = sum;
-    __syncthreads();
-    const double denom = use_softmax ? fmaxf(stat[1], 1e-12f) : 1.0;
-    for (int d = tid; d < D; d += kGenThreads) orow[d] = (float)(acc[d] / denom);
+    const double denom = use_softmax ? fmaxf(sum, 1e-12f) : 1.0;
+    for (int d = lane; d < D; d += 32) orow[d] = (float)(acc[d] / denom);
   }
 }
 
-// Shared memory of the generic kernel at tt timesteps a tile, in bytes.
-size_t generic_smem(int D, int H1, int tt) {
-  return sizeof(double) * D +
-         sizeof(float) * ((size_t)tt * (D + H1) + D + H1 + kGenWarps * kTile + kTile + 2);
+template <int Store, bool Staged>
+cudaError_t launch_generic(const float* q, const float* keys, const int* lengths,
+                           const float* w1, const float* b1, const float* w2,
+                           const float* b2, const float* w3, const float* b3, float* out,
+                           int B, int T, const GenDims& dm, int R, int stages,
+                           int use_softmax, int vec16,
+                           int sms, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (gen_weight_words(Store, dm) + R * gen_warp_words(stages, dm));
+  auto kernel = din_attention_generic_kernel<Store, Staged>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kGenWarps * 32, smem);
+  if (err != cudaSuccess) return err;
+  const int groups = (B + R - 1) / R;
+  const int grid = std::min(groups, std::max(1, per_sm) * sms);
+  kernel<<<grid, kGenWarps * 32, smem, stream>>>(q, keys, lengths, w1, b1, w2, b2, w3, b3, out,
+                                                 B, T, dm, R, stages, use_softmax, vec16);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -605,10 +972,13 @@ extern "C" int din_attention_fwd(const float* q, const float* keys,
   }
 }
 
-// din_attention_generic_fwd: the CUDA-core kernel; any D, H1, H2 >= 1 and
-// T >= 0. A tile holds up to 16 timesteps, fewer where (D + H1) is so
-// wide that 16 do not fit in shared memory; it refuses (D + H1) too wide
-// for even one (about 19,000 floats on an H100).
+// din_attention_generic_fwd: the generic kernel; any D, H1, H2 >= 1 and
+// T >= 0 (keys at any 4-byte alignment). The weights are staged as TF32
+// fragments, else as f32, else read through L1/L2, whichever first leaves
+// room for min(4, rows an SM) warps of keys, else for the most; where not
+// one warp's key ring fits, the keys are read through L1/L2 too. Refuses
+// only D + H1 so wide that one warp's q, q @ w1q and pooled sum do not
+// fit (about 19,000 floats on an H100).
 extern "C" int din_attention_generic_fwd(const float* q, const float* keys,
                                          const int* lengths, const float* w1,
                                          const float* b1, const float* w2,
@@ -624,20 +994,43 @@ extern "C" int din_attention_generic_fwd(const float* q, const float* keys,
   if (err != cudaSuccess) return (int)err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return (int)err;
-  int tt = kTile;
-  while (tt > 1 && generic_smem(D, H1, tt) > (size_t)optin) --tt;
-  const size_t smem = generic_smem(D, H1, tt);
-  if (smem > (size_t)optin) return (int)cudaErrorInvalidValue;
-  auto kernel = din_attention_generic_kernel;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kGenThreads, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int grid = std::min(B, std::max(1, per_sm) * sms);
-  kernel<<<grid, kGenThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      q, keys, lengths, w1, b1, w2, b2, w3, b3, out, B, T, D, H1, H2, tt, use_softmax);
-  return (int)cudaGetLastError();
+  const GenDims dm = gen_dims(D, H1, H2);
+  // rows an SM at most kGenWarps: at small B a block takes fewer rows, so
+  // that every SM gets one
+  const int needed = std::min(kGenWarps, std::max(1, (B + sms - 1) / sms));
+  auto warps_that_fit = [&](int store, int stages) {
+    const size_t weights = sizeof(float) * gen_weight_words(store, dm);
+    const size_t per_warp = sizeof(float) * gen_warp_words(stages, dm);
+    if (weights + per_warp > (size_t)optin) return 0;
+    return (int)std::min<size_t>(needed, ((size_t)optin - weights) / per_warp);
+  };
+  // (weights, key stages) in order of preference; the first that holds
+  // `needed` warps, else the one that holds the most
+  const int choices[][2] = {{kWFrag, 2}, {kWF32, 2}, {kWFrag, 1}, {kWF32, 1},
+                            {kWGlobal, 2}, {kWGlobal, 1}, {kWGlobal, 0}};
+  int store = kWGlobal, stages = 0, R = 0;
+  for (const auto& c : choices) {
+    const int r = warps_that_fit(c[0], c[1]);
+    if (r > R) store = c[0], stages = c[1], R = r;
+    if (r >= needed) break;
+  }
+  if (R == 0) return (int)cudaErrorInvalidValue;
+  const int vec16 = D % 4 == 0 && ((uintptr_t)keys & 15) == 0;
+  auto st = static_cast<cudaStream_t>(stream);
+  if (stages == 0)
+    return (int)launch_generic<kWGlobal, false>(q, keys, lengths, w1, b1, w2, b2, w3, b3, out, B,
+                                                T, dm, R, 0, use_softmax, vec16, sms, st);
+  switch (store) {
+    case kWFrag:
+      return (int)launch_generic<kWFrag, true>(q, keys, lengths, w1, b1, w2, b2, w3, b3, out, B, T,
+                                               dm, R, stages, use_softmax, vec16, sms, st);
+    case kWF32:
+      return (int)launch_generic<kWF32, true>(q, keys, lengths, w1, b1, w2, b2, w3, b3, out, B, T,
+                                              dm, R, stages, use_softmax, vec16, sms, st);
+    default:
+      return (int)launch_generic<kWGlobal, true>(q, keys, lengths, w1, b1, w2, b2, w3, b3, out, B,
+                                                 T, dm, R, stages, use_softmax, vec16, sms, st);
+  }
 }
 
 extern "C" const char* din_attention_error_string(int code) {

@@ -8,12 +8,15 @@ that.
   * ``din_attention_cuda``: launches a kernel; CUDA tensors only, f32
     inputs and int32 lengths, contiguous; raises on anything else. It
     takes every shape the JAX op takes (any D, T and hidden widths) and
-    chooses the kernel by shape (``kernel_for``): the tensor-core kernel
-    ``din_attention_fwd`` for D in ``TENSOR_CORE_DIMS`` and hidden widths
-    ``TENSOR_CORE_HIDDEN``, which counts its launches in
-    ``din_attention_cuda.launches``; the f32 CUDA-core kernel
-    ``din_attention_generic_fwd`` for every other shape, which counts
-    them in ``din_attention_cuda.generic_launches``.
+    chooses the kernel by shape (``kernel_for``): ``din_attention_fwd``
+    for D in ``TENSOR_CORE_DIMS`` and hidden widths ``TENSOR_CORE_HIDDEN``
+    (D a template parameter), which counts its launches in
+    ``din_attention_cuda.launches``; ``din_attention_generic_fwd`` for
+    every other shape, which counts them in
+    ``din_attention_cuda.generic_launches``. Both run the scoring MLP on
+    the tensor cores in 3xTF32 (``mma.sync``); the generic kernel pads D
+    to a multiple of 4 and the hidden widths to multiples of 8 with zeros
+    as it stages the weights, and copies keys at any 4-byte alignment.
   * ``din_attention_plain``: the same function in plain torch ops (the
     JAX ``DINAttention`` 'jnp' math, with jnp's dtype promotion), the
     oracle the kernels are held against.
@@ -52,9 +55,10 @@ from . import _build
 from ..attention import MASK_NEG, length_mask, masked_softmax
 from ..mlp import cast_contiguous, einsum, matmul, promoted_dtype
 
-# The tensor-core kernel's instantiations: D is a template parameter, and
+# The instantiations of din_attention_fwd: D is a template parameter, and
 # the hidden widths are those DINAttention is built with
-# (rank_tpu/ops/attention.py). Every other shape takes the generic kernel.
+# (rank_tpu/ops/attention.py). Every other shape takes the generic kernel,
+# on the tensor cores too, at zero-padded widths.
 TENSOR_CORE_DIMS = (8, 16, 32, 64)
 TENSOR_CORE_HIDDEN = (64, 32)
 
@@ -122,8 +126,9 @@ def check_shapes(query, keys, lengths, params) -> None:
 
 def kernel_for(d: int, h1: int, h2: int) -> str:
     """The kernel ``din_attention_cuda`` launches for D and hidden widths
-    (H1, H2): the tensor-core kernel at its instantiations, else the
-    generic one."""
+    (H1, H2): ``din_attention_fwd`` at its instantiations, else
+    ``din_attention_generic_fwd``, which takes every D, H1, H2 >= 1 (both
+    on the tensor cores; "generic" means any shape)."""
     if d in TENSOR_CORE_DIMS and (h1, h2) == TENSOR_CORE_HIDDEN:
         return "din_attention_fwd"
     return "din_attention_generic_fwd"

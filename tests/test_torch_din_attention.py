@@ -106,3 +106,46 @@ def test_kernel_request_on_cpu_raises():
 def test_unknown_backend_raises():
     with pytest.raises(ValueError, match="backend"):
         DINAttention(16, backend="triton")
+
+
+@pytest.mark.parametrize("op", ["din_attention", "cin_layer_t"])
+def test_smoke_cpu_reference_computes_as_the_card(op):
+    """``chip_smoke.card_arithmetic_on_cpu``, the CPU reference of the
+    smoke's bf16 serving check: inside it the operators, as the modules
+    reach them, give the plain version in f32 on the bf16 inputs, rounded
+    to bf16 (what the CUDA implementations return), which differs from
+    the plain version in bf16; on leaving it the operators are restored."""
+    import chip_smoke
+    from rank_tpu_torch.ops.cin import CIN
+    from rank_tpu_torch.ops.kernels import cin as ck
+
+    gen = torch.Generator().manual_seed(3)
+    if op == "din_attention":
+        q, k, lengths, params = _torch(*_inputs(b=5, t=20, d=128, seed=3))
+        mod = DINAttention(128, use_softmax=True)
+        mod.load_state_dict(dict(zip(NAMES, params)))
+        args = (q.bfloat16(), k.bfloat16(), lengths)
+        want = tk.din_attention_plain(args[0].float(), args[1].float(), lengths,
+                                      [p.bfloat16().float() for p in params], True).bfloat16()
+        mod = mod.bfloat16()
+    else:
+        mod = CIN(7, (16, 8), split_half=True, generator=gen).bfloat16()
+        args = (torch.randn(5, 7, 12, generator=gen).bfloat16(),)
+        x0_t = args[0].float().transpose(1, 2).contiguous()
+        first = ck.cin_layer_plain_t(x0_t, x0_t, mod.w_0.float()).bfloat16()
+        nxt, direct = torch.split(first, 8, dim=2)
+        last = ck.cin_layer_plain_t(nxt.float(), x0_t, mod.w_1.float()).bfloat16()
+        want = torch.cat([direct.sum(1), last.sum(1)], dim=-1)
+    module = {"din_attention": tk, "cin_layer_t": ck}[op]
+    operator = getattr(module, op)
+    with torch.no_grad():
+        plain = mod(*args)
+        with chip_smoke.card_arithmetic_on_cpu():
+            assert getattr(module, op) is not operator
+            got = mod(*args)
+        assert getattr(module, op) is operator
+        again = mod(*args)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.testing.assert_close(again, plain, rtol=0, atol=0)
+    assert not torch.equal(got, plain)

@@ -2,7 +2,9 @@
 kernels once refused (fault C2), on the CPU.
 
 B1 (DIN attention) took D in {8, 16, 32, 64}, hidden widths (64, 32) and
-T up to what shared memory held (about 2,300 at D = 16); B2 (the CIN
+T up to what shared memory held (about 2,300 at D = 16); its generic
+kernel, for every other D and hidden widths, now pads them to the tensor
+cores' tiles and runs layer 1 in 64-column chunks; B2 (the CIN
 layer) took H <= 256 and F <= 64. The JAX package takes every shape. The
 port's kernels now do too, held against their plain versions on the card
 by ``chip_smoke.py``; here the plain versions, and the registered
@@ -28,10 +30,14 @@ TOL = dict(rtol=1e-5, atol=1e-5)
 NAMES = ("w1", "b1", "w2", "b2", "w3", "b3")
 
 # (D, hidden widths, T): D outside the tensor-core instantiations, hidden
-# widths other than (64, 32), and a history longer than shared memory held
+# widths other than (64, 32), and a history longer than shared memory held;
+# then shapes of the generic kernel's padding and chunks: D = 10 and hidden
+# widths (24, 12), both padded, and hidden widths (136, 72), past one
+# 64-column chunk of h1 and of h2, at D = 5
 DIN_SHAPES = {"D10": (10, (64, 32), 50), "D12": (12, (64, 32), 50), "D128": (128, (64, 32), 50),
               "hidden32x16": (16, (32, 16), 50), "hidden64x64": (16, (64, 64), 50),
-              "T3000": (16, (64, 32), 3000)}
+              "T3000": (16, (64, 32), 3000), "D10_hidden24x12": (10, (24, 12), 50),
+              "D5_hidden136x72": (5, (136, 72), 50), "D128_T1024": (128, (32, 16), 1024)}
 # (H, F, O): H past 256 and F past 64
 CIN_SHAPES = {"H300": (300, 7, 24), "F80": (64, 80, 24)}
 
@@ -89,7 +95,8 @@ def test_cin_plain_and_operator_match_jax_past_former_limits(shape):
 @pytest.mark.parametrize("shape", list(DIN_SHAPES))
 def test_din_kernel_choice_is_by_shape(shape):
     """The tensor-core kernel at its instantiations, at any T; the generic
-    kernel at every other D and hidden widths."""
+    kernel (on the tensor cores too, at zero-padded widths) at every other
+    D and hidden widths."""
     d, (h1, h2), _ = DIN_SHAPES[shape]
     tensor_core = d in (8, 16, 32, 64) and (h1, h2) == (64, 32)
     want = "din_attention_fwd" if tensor_core else "din_attention_generic_fwd"

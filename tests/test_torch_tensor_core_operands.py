@@ -158,6 +158,177 @@ def test_din_folded_forward_matches_plain_and_jax(d, use_softmax):
     np.testing.assert_allclose(got, np.asarray(pk._reference(*jargs, use_softmax)), **TOL)
 
 
+# -- B1's generic kernel: zero-padded widths, chunks, tiles ----------------------
+
+# (D, hidden widths): D outside the tensor-core instantiations (10 and 12
+# pad to DP = 12, whose layer-1 k-step 1 straddles the [k | q*k] seam; 128
+# does not pad), hidden widths that pad or not, and (136, 72), which runs
+# layer 1 in three h1 chunks (64, 64, 8) and layer 2 in two passes (64, 8)
+GENERIC_DIMS = (10, 12, 128)
+GENERIC_HIDDEN = ((32, 16), (64, 64), (24, 12))
+GENERIC_CHUNKED = (5, (136, 72))
+GENERIC_TILE, GENERIC_CHUNK = 16, 64
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def generic_operands(params, d: int) -> dict:
+    """The generic kernel's operands as it stages them: the first layer
+    folded (``fold_first_layer``), D padded to DP (a multiple of 4), H1 and
+    H2 to multiples of 8, zero outside the real block. w1kp is (2 DP, H1P):
+    rows [0, D) act on k, rows [DP, DP + D) on q*k."""
+    w1, b1, w2, b2, w3, _ = params
+    h1, h2 = w2.shape
+    dp, h1p, h2p = _round_up(d, 4), _round_up(h1, 8), _round_up(h2, 8)
+    w1q, w1kp = fold_first_layer(w1)
+    ops = {"w1kp": torch.zeros(2 * dp, h1p), "w1q": torch.zeros(dp, h1p),
+           "b1": torch.zeros(h1p), "w2": torch.zeros(h1p, h2p), "b2": torch.zeros(h2p),
+           "w3": torch.zeros(h2p)}
+    ops["w1kp"][:d, :h1] = w1kp[:d]
+    ops["w1kp"][dp:dp + d, :h1] = w1kp[d:]
+    ops["w1q"][:d, :h1] = w1q
+    ops["b1"][:h1] = b1
+    ops["w2"][:h1, :h2] = w2
+    ops["b2"][:h2] = b2
+    ops["w3"][:h2] = w3[:, 0]
+    return ops
+
+
+def _generic_forward(q, k, lengths, params, use_softmax):
+    """The generic kernel's algebra in torch, row by row: q and the keys
+    zero-padded to DP; q @ w1q + b1 once a row; 16-step tiles of the valid
+    keys; layer 1 in chunks of 64 h1 columns, each chunk's ReLU'd h1
+    feeding layer 2 for the same rows of w2, layer 2 in passes of 64 h2
+    columns, each adding its share of the score; the online softmax
+    (running max and sum, the pooled sum rescaled a tile); the pooled sum
+    of the real D columns in f64."""
+    _, t, d = k.shape
+    ops = generic_operands(params, d)
+    dp = ops["w1q"].shape[0]
+    h1p, h2p = ops["w2"].shape
+    qp = torch.nn.functional.pad(q, (0, dp - d))
+    kp = torch.nn.functional.pad(k, (0, dp - d))
+    qh = qp @ ops["w1q"] + ops["b1"]
+    b3 = params[5]
+    sqrt_d = math.sqrt(d)
+    out = torch.zeros(q.shape, dtype=torch.float64)
+    for row in range(q.shape[0]):
+        n = min(max(int(lengths[row]), 0), t)
+        m, total = (MASK_NEG / sqrt_d if n < t else -math.inf), 0.0
+        acc = torch.zeros(d, dtype=torch.float64)
+        for t0 in range(0, n, GENERIC_TILE):
+            kt = kp[row, t0:min(n, t0 + GENERIC_TILE)]
+            a = torch.cat([kt, qp[row] * kt], dim=-1)  # (nv, 2 DP) [k | q*k]
+            score = torch.zeros(len(kt))
+            for c2 in range(0, h2p, GENERIC_CHUNK):
+                cols2 = slice(c2, c2 + GENERIC_CHUNK)
+                h2 = torch.zeros(len(kt), min(GENERIC_CHUNK, h2p - c2))
+                for c1 in range(0, h1p, GENERIC_CHUNK):
+                    cols1 = slice(c1, c1 + GENERIC_CHUNK)
+                    h1 = torch.relu(a @ ops["w1kp"][:, cols1] + qh[row, cols1])
+                    h2 = h2 + h1 @ ops["w2"][cols1, cols2]
+                score = score + torch.relu(h2 + ops["b2"][cols2]) @ ops["w3"][cols2]
+            score = score + b3
+            if use_softmax:
+                z = score / sqrt_d
+                m_new = max(m, float(z.max()))
+                scale = math.exp(m - m_new)
+                w = torch.exp(z - m_new)
+                total, m = total * scale + float(w.sum()), m_new
+            else:
+                scale, w = 1.0, score
+            acc = acc * scale + (w @ kt[:, :d]).double()
+        out[row] = acc / (max(total, 1e-12) if use_softmax else 1.0)
+    return out.float()
+
+
+def _generic_inputs(d, hidden, b=9, t=50, seed=0):
+    """Lengths 0, 1, 15, 16, 17, 49 and T around the 16-step tiles;
+    lecun-scaled weights with random biases."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(b, d)).astype(np.float32)
+    k = rng.normal(size=(b, t, d)).astype(np.float32)
+    lengths = np.array([0, t, 1, 15, 16, 17, 49, 32, 0][:b], np.int32)
+    h1, h2 = hidden
+    shapes = [(4 * d, h1), (h1,), (h1, h2), (h2,), (h2, 1), (1,)]
+    params = tuple((rng.normal(size=s) * (s[0] ** -0.5 if len(s) == 2 else 0.3))
+                   .astype(np.float32) for s in shapes)
+    return q, k, lengths, params
+
+
+@pytest.mark.parametrize("d, hidden", [(d, h) for d in GENERIC_DIMS for h in GENERIC_HIDDEN]
+                         + [GENERIC_CHUNKED])
+def test_generic_operands_are_zero_padded(d, hidden):
+    """The padded operands hold the fold in their real block and zero
+    elsewhere, and DP, H1P, H2P are the smallest multiples of 4, 8, 8."""
+    params = tuple(map(torch.from_numpy, _generic_inputs(d, hidden, seed=d)[3]))
+    ops = generic_operands(params, d)
+    h1, h2 = hidden
+    dp, h1p = ops["w1q"].shape
+    h2p = ops["w2"].shape[1]
+    assert (dp, h1p, h2p) == (_round_up(d, 4), _round_up(h1, 8), _round_up(h2, 8))
+    assert dp - d < 4 and h1p - h1 < 8 and h2p - h2 < 8 and (2 * dp) % 8 == 0
+    w1q, w1kp = fold_first_layer(params[0])
+    exact = dict(rtol=0, atol=0)
+    torch.testing.assert_close(ops["w1kp"][:d, :h1], w1kp[:d], **exact)
+    torch.testing.assert_close(ops["w1kp"][dp:dp + d, :h1], w1kp[d:], **exact)
+    torch.testing.assert_close(ops["w1q"][:d, :h1], w1q, **exact)
+    torch.testing.assert_close(ops["w2"][:h1, :h2], params[2], **exact)
+    zero_w1kp = ops["w1kp"].clone()
+    zero_w1kp[:d, :h1] = 0
+    zero_w1kp[dp:dp + d, :h1] = 0
+    assert not zero_w1kp.any()
+    assert not ops["w1q"][d:].any() and not ops["w1q"][:, h1:].any()
+    assert not ops["w2"][h1:].any() and not ops["w2"][:, h2:].any()
+    assert not ops["b1"][h1:].any() and not ops["b2"][h2:].any() and not ops["w3"][h2:].any()
+
+
+@pytest.mark.parametrize("d, hidden", [(12, (24, 12)), GENERIC_CHUNKED])
+def test_generic_padded_forward_equals_unpadded(d, hidden):
+    """The padded operands give the unpadded layers exactly where it
+    matters: each padded h1 column is relu(0) = 0 and each padded h2
+    column scores 0, so the scores equal the folded forward's."""
+    q, k, _, params = _generic_inputs(d, hidden, seed=d + 1)
+    tq, tk_ = torch.from_numpy(q), torch.from_numpy(k)
+    tp = tuple(map(torch.from_numpy, params))
+    ops = generic_operands(tp, d)
+    dp = ops["w1q"].shape[0]
+    h1, h2 = hidden
+    qp, kp = (torch.nn.functional.pad(x, (0, dp - d)) for x in (tq, tk_))
+    a = torch.cat([kp, qp[:, None, :] * kp], dim=-1)
+    h1_pad = torch.relu(a @ ops["w1kp"] + (qp @ ops["w1q"] + ops["b1"])[:, None, :])
+    assert not h1_pad[..., h1:].any()
+    h2_pad = torch.relu(h1_pad @ ops["w2"] + ops["b2"])
+    assert not h2_pad[..., h2:].any()
+    w1q, w1kp = fold_first_layer(tp[0])
+    h1_ref = torch.relu(torch.cat([tk_, tq[:, None, :] * tk_], -1) @ w1kp
+                        + (tq @ w1q + tp[1])[:, None, :])
+    torch.testing.assert_close(h1_pad[..., :h1], h1_ref, **TOL)
+    h2_ref = torch.relu(h1_ref @ tp[2] + tp[3])
+    torch.testing.assert_close(h2_pad @ ops["w3"], (h2_ref @ tp[4])[..., 0], **TOL)
+
+
+@pytest.mark.parametrize("use_softmax", [False, True])
+@pytest.mark.parametrize("d, hidden", [(d, h) for d in GENERIC_DIMS for h in GENERIC_HIDDEN]
+                         + [GENERIC_CHUNKED])
+def test_generic_forward_matches_plain_and_jax(d, hidden, use_softmax):
+    """The generic kernel's algebra against the port's plain version,
+    rank_tpu's ``_reference`` and its Pallas kernel in interpret mode, at
+    rtol = atol = 1e-5."""
+    q, k, lengths, params = _generic_inputs(d, hidden, seed=d + sum(hidden))
+    tq, tk_, tl = map(torch.from_numpy, (q, k, lengths))
+    tp = tuple(map(torch.from_numpy, params))
+    got = _generic_forward(tq, tk_, tl, tp, use_softmax).numpy()
+    assert not got[0].any() and not got[-1].any(), "zero-length rows pool to zeros"
+    np.testing.assert_allclose(
+        got, dk.din_attention_plain(tq, tk_, tl, tp, use_softmax).numpy(), **TOL)
+    jargs = (jnp.asarray(q), jnp.asarray(k), jnp.asarray(lengths), tuple(map(jnp.asarray, params)))
+    np.testing.assert_allclose(got, np.asarray(pk._reference(*jargs, use_softmax)), **TOL)
+    np.testing.assert_allclose(got, np.asarray(pk.din_attention_fused(*jargs, use_softmax)), **TOL)
+
+
 # -- TF32: why the kernels split -------------------------------------------------
 
 
@@ -225,7 +396,8 @@ def test_3xtf32_meets_the_bar_where_tf32_does_not():
 
 
 @pytest.mark.parametrize("d, hidden", [(12, (64, 32)), (128, (64, 32)),
-                                       (16, (32, 16)), (16, (64, 64))])
+                                       (16, (32, 16)), (16, (64, 64)),
+                                       (10, (24, 12)), GENERIC_CHUNKED])
 def test_din_wrapper_raises_for_untaken_shapes(d, hidden):
     """D outside {8, 16, 32, 64} and hidden widths other than (64, 32),
     which the wrapper once refused by shape, now pass its shape check and

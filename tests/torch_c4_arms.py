@@ -39,7 +39,8 @@ and skips the runs the file already holds; the runs go to ``--workers``
 spawned processes of one thread each. ``table`` renders ``C4_ARMS_CPU.md``:
 each arm's mean ± sd and the paired contrasts, with the card's runs
 (``python -m rank_tpu_torch.parity calib/mtl ... --json_out
-C4_ARMS_H100_*.jsonl``) as the arm ``P_card``.
+C4_ARMS_H100_*.jsonl``, and ``tests/torch_c4_card.py --protocol fullscale``
+into ``C4_ARMS_H100_fullscale.jsonl``) as the arm ``P_card``.
 """
 
 import argparse
@@ -77,7 +78,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JSON_OUT = "C4_ARMS_CPU.jsonl"
 UNTRAINED_OUT = "C4_UNTRAINED_ROWS_CPU.jsonl"
 CARD_FILES = ("C4_ARMS_H100_calib.jsonl", "C4_ARMS_H100_mtl.jsonl",
-              "C4_ARMS_H100_kernels.jsonl")
+              "C4_ARMS_H100_kernels.jsonl", "C4_ARMS_H100_fullscale.jsonl")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,4 +1,6 @@
-"""C4's card arm split by kernel: the port alone on the card under the
+"""C4's card arms: the port alone on the card.
+
+``--protocol calib`` splits the arm by kernel: the port under the
 calibrated protocol (``parity.calib_config`` on ``parity.calibrated_data
 (0.05)``, 3 epochs), with the model's ``kernel_backend`` set, so that a
 model whose hand kernels run on its path (B1 for DIN, B2 for xDeepFM) is
@@ -14,6 +16,18 @@ collected by pytest. On a machine with a CUDA card:
 One JSON line a run, in ``rank_tpu_torch.parity``'s record format plus
 ``kernel_backend``; ``tests/torch_c4_arms.py table`` reads them as the arms
 ``P_card_auto`` and ``P_card_jnp``.
+
+``--protocol fullscale`` runs ``tests/torch_c4_arms.py``'s full-scale
+protocol (``fullscale.run_one``'s config, ``default_config(m,
+dense_init='torch')``, batch 1024, 2 epochs on the calibrated log at scale
+1.0, the shuffle seeded with the run's seed, the best eval AUC of the
+epochs), the log built once a call:
+
+    python tests/torch_c4_card.py --protocol fullscale --models widedeep \\
+        --seeds 42-61 --json_out C4_ARMS_H100_fullscale.jsonl
+
+``table`` reads those lines as the arm ``P_card`` of the ``fullscale``
+protocol.
 """
 
 import argparse
@@ -27,7 +41,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import torch  # noqa: E402
 
 from rank_tpu_torch import WECHAT_SCHEMA, parity  # noqa: E402
-from rank_tpu_torch.train import Trainer  # noqa: E402
+from rank_tpu_torch.models import default_config  # noqa: E402
+from rank_tpu_torch.train import TrainConfig, Trainer  # noqa: E402
+from rank_tpu_torch.train.staged import StagedRunner  # noqa: E402
+
+FULLSCALE = 1.0
+FULLSCALE_EPOCHS = 2
 
 
 def run(model: str, seed: int, backend: str, data, device: str) -> dict:
@@ -48,8 +67,34 @@ def run(model: str, seed: int, backend: str, data, device: str) -> dict:
     }
 
 
+def run_fullscale(model: str, seed: int, data, device: str) -> dict:
+    """One run of the full-scale protocol: the best eval AUC over the
+    epochs, each epoch's eval recorded."""
+    model_cfg = default_config(model, dense_init="torch")
+    train_cfg = TrainConfig(batch_size=parity.BATCH_SIZE, log_every=0, seed=seed)
+    t0 = time.perf_counter()
+    trainer = Trainer(WECHAT_SCHEMA, model_cfg, train_cfg, device=device)
+    runner = StagedRunner(trainer, data.train, data.eval, parity.BATCH_SIZE)
+    state = trainer.init_state()
+    evals = []
+    for epoch in range(1, FULLSCALE_EPOCHS + 1):
+        state, _ = runner.train_epoch(state, epoch, seed)
+        ev = runner.evaluate(state, epoch)
+        evals.append({"epoch": epoch, "auc": float(ev["auc"]), "loss": float(ev["loss"])})
+    return {
+        "matrix": "fullscale", "model": model, "seed": seed, "scale": data.size,
+        "epochs": FULLSCALE_EPOCHS, "batch_size": parity.BATCH_SIZE,
+        "protocol": data.size == FULLSCALE, "device": str(trainer.device),
+        "port": max(e["auc"] for e in evals), "evals": evals, "task_aucs": ev["task_aucs"],
+        "t_port_s": time.perf_counter() - t0,
+        "card": parity.card_line() if trainer.device.type == "cuda" else None,
+        "torch": torch.__version__, "matmul_precision": parity.matmul_precision(),
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--protocol", choices=("calib", "fullscale"), default="calib")
     ap.add_argument("--models", default="din")
     ap.add_argument("--seeds", default="42-61")
     ap.add_argument("--kernel_backends", default="auto,jnp")
@@ -59,11 +104,16 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     lo, _, hi = args.seeds.partition("-")
     seeds = range(int(lo), int(hi or lo) + 1)
-    data = parity.calibrated_data(parity.CALIB_SCALE, args.cache_dir)
+    fullscale = args.protocol == "fullscale"
+    data = parity.calibrated_data(FULLSCALE if fullscale else parity.CALIB_SCALE, args.cache_dir)
     for model in args.models.split(","):
         for seed in seeds:
-            for backend in args.kernel_backends.split(","):
-                rec = run(model, seed, backend, data, args.device)
+            if fullscale:
+                recs = [run_fullscale(model, seed, data, args.device)]
+            else:
+                recs = [run(model, seed, backend, data, args.device)
+                        for backend in args.kernel_backends.split(",")]
+            for rec in recs:
                 with open(args.json_out, "a") as f:
                     f.write(json.dumps(rec) + "\n")
                 print(json.dumps(rec), flush=True)
