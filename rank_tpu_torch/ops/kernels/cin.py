@@ -45,6 +45,7 @@ from torch.utils.flop_counter import register_flop_formula
 
 from . import _build
 from ..mlp import cast_contiguous, einsum, promoted_dtype
+from ...utils import tracing
 
 _lib = None
 
@@ -145,9 +146,11 @@ cin_layer_cuda_t.launches = 0
 
 def cin_layer_vjp(xk_t, x0_t, w, grad_out):
     """The gradients of xk_t, x0_t and w, recomputed through the plain
-    version (the JAX kernel's ``_bwd``)."""
-    _, pullback = torch.func.vjp(cin_layer_plain_t, xk_t, x0_t, w)
-    return pullback(grad_out)
+    version (the JAX kernel's ``_bwd``). Its span runs on whatever thread
+    autograd runs the backward on."""
+    with tracing.span("cin.backward"):
+        _, pullback = torch.func.vjp(cin_layer_plain_t, xk_t, x0_t, w)
+        return pullback(grad_out)
 
 
 class CINLayerFn(torch.autograd.Function):

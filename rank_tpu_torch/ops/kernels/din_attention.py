@@ -54,6 +54,7 @@ from torch.utils.flop_counter import register_flop_formula
 from . import _build
 from ..attention import MASK_NEG, length_mask, masked_softmax
 from ..mlp import cast_contiguous, einsum, matmul, promoted_dtype
+from ...utils import tracing
 
 # The instantiations of din_attention_fwd: D is a template parameter, and
 # the hidden widths are those DINAttention is built with
@@ -197,8 +198,9 @@ def din_attention_vjp(query, keys, lengths, params, use_softmax, grad_out):
     def fn(q, k, *p):
         return din_attention_plain(q, k, lengths, p, use_softmax)
 
-    _, pullback = torch.func.vjp(fn, query, keys, *params)
-    return pullback(grad_out)
+    with tracing.span("din_attention.backward"):
+        _, pullback = torch.func.vjp(fn, query, keys, *params)
+        return pullback(grad_out)
 
 
 class DINAttentionFn(torch.autograd.Function):

@@ -38,6 +38,7 @@ from .models.base import ModelConfig
 from .models.registry import build_model, resolve_device
 from .ops.autoint import DTYPES
 from .train.checkpoint import CheckpointManager
+from .utils import tracing
 
 # what an artifact records beside its program: its inputs, names and dtypes
 _ARTIFACT_META = "serving.json"
@@ -106,20 +107,27 @@ class Predictor:
 
     def __call__(self, batch: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
         """batch: loader-layout feature dict (no labels required).
-        Returns {head: (N,) probabilities}."""
-        n = next(iter(batch.values())).shape[0]
-        b = _bucket(n, self.min_bucket)
-        padded = {}
-        for k, v in batch.items():
-            if k in ("labels", "_valid"):
-                continue
-            v = np.asarray(v)
-            if b != n:
-                v = np.concatenate([v, np.repeat(v[:1], b - n, axis=0)], axis=0)
-            padded[k] = torch.from_numpy(v).to(self.device)
-        with torch.inference_mode():
-            heads = serving_heads(self.model(padded))
-            return {head: p[:n].float().cpu().numpy() for head, p in heads.items()}
+        Returns {head: (N,) probabilities}. Every column is padded on the
+        host first, then each is copied to the device."""
+        with tracing.span("predictor.call"):
+            n = next(iter(batch.values())).shape[0]
+            b = _bucket(n, self.min_bucket)
+            with tracing.span("predictor.pad"):
+                cols = {}
+                for k, v in batch.items():
+                    if k in ("labels", "_valid"):
+                        continue
+                    v = np.asarray(v)
+                    if b != n:
+                        v = np.concatenate([v, np.repeat(v[:1], b - n, axis=0)], axis=0)
+                    cols[k] = v
+            with tracing.span("predictor.h2d"):
+                padded = {k: torch.from_numpy(v).to(self.device) for k, v in cols.items()}
+            with torch.inference_mode():
+                with tracing.span("predictor.forward"):
+                    heads = serving_heads(self.model(padded))
+                with tracing.span("predictor.d2h"):
+                    return {head: p[:n].float().cpu().numpy() for head, p in heads.items()}
 
 
 # -- portable serving artifacts (torch.export) ---------------------------------------

@@ -75,7 +75,11 @@ Measurement (``rank_tpu/train/loop.py:462-466,597-630``):
     On the card the profiler first sees ``PROFILER_WARMUP_S`` of tiny
     kernels, for it has lost records of the first kernels it saw;
   * ``restoring`` runs a measured step (``utils/roofline.py:step_costs``,
-    ``StagedRunner.step_memory_analysis``) and puts the state back.
+    ``StagedRunner.step_memory_analysis``) and puts the state back;
+  * while a profiler records, ``train_step`` opens the spans
+    ``rank_tpu_torch.trainer.step`` and, inside it, ``.forward`` (the
+    model and the loss), ``.backward`` (zeroing, backward, the sums over
+    ranks, clipping), ``.optimizer`` and ``.meters`` (``utils/tracing.py``).
 """
 
 from __future__ import annotations
@@ -97,6 +101,7 @@ from ..features import FeatureSchema
 from ..models import MULTI_TASK_MODELS, ModelConfig, build_model
 from ..models.registry import resolve_device
 from ..parallel.mesh import DATA_AXIS, TABLE_AXIS, Mesh, local_device, make_mesh
+from ..utils import tracing
 from . import metrics as M
 from . import mtl
 from .checkpoint import load_into, rng_states
@@ -621,31 +626,35 @@ class Trainer:
         ``meters`` on the device. The parameters' ``.grad`` hold this step's
         gradients afterwards (summed over the data group). Runs under
         ``cfg.matmul_precision``."""
-        with matmul_precision_scope(self.cfg.matmul_precision):
+        with tracing.span("trainer.step"), matmul_precision_scope(self.cfg.matmul_precision):
             self._train_step(state, meters, batch)
 
     def _train_step(self, state: State, meters: Dict[str, torch.Tensor], batch) -> None:
         model, optimizer = state["model"], state["optimizer"]
-        model.train()
-        out = model(batch)
-        optimizer.zero_grad(set_to_none=True)
-        if self.mtl_mode is None:
-            loss, probs = self.loss_fn(out, batch)
-            loss.backward()
-            self._sync_gradients({name: p.grad for name, p in model.named_parameters()
-                                  if p.grad is not None}, self._sharded_tables(model))
-        else:
-            loss, probs = self._mtl_gradients(state, out, batch)
-        if self.cfg.gradient_clip_norm > 0:
-            sharded = {id(m.weight) for m in self._sharded_tables(model).values()}
-            grads = [p.grad for p in model.parameters()
-                     if p.grad is not None and id(p) not in sharded]
-            shards = [p.grad for p in model.parameters()
-                      if p.grad is not None and id(p) in sharded]
-            clip_by_global_norm_(grads, self.cfg.gradient_clip_norm, shards, self._table_sum)
-        optimizer.step()
-        state["step"] += 1
-        with torch.no_grad():
+        with tracing.span("trainer.forward"):
+            model.train()
+            out = model(batch)
+            if self.mtl_mode is None:
+                loss, probs = self.loss_fn(out, batch)
+        with tracing.span("trainer.backward"):
+            optimizer.zero_grad(set_to_none=True)
+            if self.mtl_mode is None:
+                loss.backward()
+                self._sync_gradients({name: p.grad for name, p in model.named_parameters()
+                                      if p.grad is not None}, self._sharded_tables(model))
+            else:
+                loss, probs = self._mtl_gradients(state, out, batch)
+            if self.cfg.gradient_clip_norm > 0:
+                sharded = {id(m.weight) for m in self._sharded_tables(model).values()}
+                grads = [p.grad for p in model.parameters()
+                         if p.grad is not None and id(p) not in sharded]
+                shards = [p.grad for p in model.parameters()
+                          if p.grad is not None and id(p) in sharded]
+                clip_by_global_norm_(grads, self.cfg.gradient_clip_norm, shards, self._table_sum)
+        with tracing.span("trainer.optimizer"):
+            optimizer.step()
+            state["step"] += 1
+        with tracing.span("trainer.meters"), torch.no_grad():
             task = self.primary_head(probs)
             y = self.head_labels(task, batch["labels"])
             valid = batch.get("_valid")

@@ -42,6 +42,7 @@ import torch
 
 from ..data.loader import num_rows
 from ..parallel.mesh import DATA_AXIS, Mesh
+from ..utils import tracing
 
 SHUFFLE_MODES = ("global", "local")
 
@@ -159,23 +160,25 @@ class StagedRunner:
 
     def shuffled(self, epoch: int, seed: int) -> Dict[str, torch.Tensor]:
         """This rank's staged training rows in this epoch's order."""
-        device = self.trainer.device
-        d = self.mesh.shape[DATA_AXIS]
-        n_local = self.train_steps * self.batch_size
-        generator = torch.Generator(device=device).manual_seed(seed + epoch)
-        if self.shuffle_mode == "local":
-            if d > 1 and not self._interleaved:
-                self._stride_interleave()
-            perms = [torch.randperm(n_local, generator=generator, device=device) for _ in range(d)]
-            perm = perms[self.mesh.data_index]
-            return {k: v.index_select(0, perm) for k, v in self.train_staged.items()}
-        perm = torch.randperm(n_local * d, generator=generator, device=device)
-        if d == 1:
-            return {k: v.index_select(0, perm) for k, v in self.train_staged.items()}
-        # step s's global batch perm[s*gbs:(s+1)*gbs] in d blocks, block i
-        # for data rank i
-        wanted = perm.view(self.train_steps, d, self.batch_size).transpose(0, 1).reshape(d, -1)
-        return self._exchange(self.train_staged, wanted)
+        with tracing.span("staged.shuffle"):
+            device = self.trainer.device
+            d = self.mesh.shape[DATA_AXIS]
+            n_local = self.train_steps * self.batch_size
+            generator = torch.Generator(device=device).manual_seed(seed + epoch)
+            if self.shuffle_mode == "local":
+                if d > 1 and not self._interleaved:
+                    self._stride_interleave()
+                perms = [torch.randperm(n_local, generator=generator, device=device)
+                         for _ in range(d)]
+                perm = perms[self.mesh.data_index]
+                return {k: v.index_select(0, perm) for k, v in self.train_staged.items()}
+            perm = torch.randperm(n_local * d, generator=generator, device=device)
+            if d == 1:
+                return {k: v.index_select(0, perm) for k, v in self.train_staged.items()}
+            # step s's global batch perm[s*gbs:(s+1)*gbs] in d blocks, block i
+            # for data rank i
+            wanted = perm.view(self.train_steps, d, self.batch_size).transpose(0, 1).reshape(d, -1)
+            return self._exchange(self.train_staged, wanted)
 
     def step_memory_analysis(self, state) -> Optional[Dict[str, float]]:
         """What one train step on the first staged batch holds on the card,
