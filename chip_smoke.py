@@ -14,7 +14,8 @@ Phases; any failure raises and the script exits non-zero:
      the build time and the compiler's register and shared-memory report;
      then ``cuobjdump -sass`` of each library counts the tensor-core
      instructions (HMMA, HGMMA) of each kernel, and fails if a kernel has
-     none (every kernel, B1's generic kernel's four variants among them);
+     none (every kernel, B1's generic kernel's four variants among them,
+     but B2's sum of partial weight gradients, which makes no product);
   3. kernels vs plain: each kernel against its plain torch version on the
      card, within rtol/atol 1e-5: B1 (DIN attention) at B in {1, 7, 256,
      1024, 8192}, lengths that include 0, 1, 15, 16, 17, 49 and 50, both
@@ -37,16 +38,25 @@ Phases; any failure raises and the script exits non-zero:
      D = 256 and 4096 (weights, and then keys, read through L1/L2) and on
      keys that do not start on a 16-byte boundary (4-byte copies), both
      softmax modes, each against the plain version to 1e-5 and against
-     f64; and for both kernels, the gradients through their autograd
-     Function and their registered operator against autograd through the
-     plain version, at B = 1024 (B1 also through its generic kernel's
-     operator at D = 128);
+     f64; B2's backward kernels (``cin_layer_bwd``) against the plain
+     gradient (``cin_layer_vjp_plain``) at both layers and B in {1024,
+     8192}, each gradient's error against f64, with their time, bounds and
+     the plain gradient's time (``kernel_vs_plain`` lines with
+     ``kernel="cin_layer_bwd"``), and at ``OTHER_CIN_SHAPES`` (O = 10 and
+     300, H = 300, F = 80; ``cin_backward_shape`` lines); and for both kernels, the gradients
+     through their autograd Function and their registered operator against
+     autograd through the plain version, at B = 1024 (B1 also through its
+     generic kernel's operator at D = 128; B2's through its backward
+     kernels, which must launch once a backward);
   4. main paths, each with the launch counts zeroed just before it and
      read just after; every kernel of the path must have launched:
      a. training: ``rank_tpu_torch.cli.main`` on ``--model=xdeepfm
         --synthetic=200000 --num_epochs=2`` at the defaults (full width)
         in a temporary directory; B2 must launch in every train and eval
-        step, the loss must be finite, ``best_model`` and
+        step and its backward kernels once a layer in every train step
+        (``cin_layer_bwd_cuda_t.launches``; every xDeepFM training path
+        of phase 4 is held to that, and the ``kernels`` line sums them),
+        the loss must be finite, ``best_model`` and
         ``predictions.csv`` must exist and eval AUC must pass 0.6 (a
         learning-sanity bar). Then ``--model=din`` at 50,000 rows: B1 must
         launch, and the attention weights must move from their initial
@@ -316,6 +326,9 @@ ARITHMETIC_BY_ERROR = ((1e-5, "float32"), (1.6e-3, "tf32"), (float("inf"), "bflo
 # The kernels' B values at the main paths' shapes, and the lengths around
 # B1's 16-row tiles that every B1 check holds.
 TIMED_B = (256, 1024, 8192)
+# kernels that make no products, which the tensor-core check passes over:
+# the sum of B2's partial weight gradients over the row splits
+NO_PRODUCTS = ("cin_layer_bwd_dw_reduce",)
 RAGGED_LENGTHS = (0, 1, 15, 16, 17, 49, 50)
 # (H, F, O) of B2 checks beside the default xDeepFM's layers: H and O that
 # the kernel pads, O over three 128-wide output tiles, the last partial,
@@ -577,7 +590,7 @@ def build_kernels() -> None:
 def check_tensor_cores(name: str) -> None:
     """Count the tensor-core instructions in the SASS of each kernel of a
     library (``cuobjdump``, beside ``nvcc`` in the toolkit); fail if a
-    kernel has none."""
+    kernel has none, but one of ``NO_PRODUCTS``."""
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(_build.library_path(name))],
                           capture_output=True, text=True, check=True, timeout=300).stdout
@@ -591,6 +604,8 @@ def check_tensor_cores(name: str) -> None:
         generic = [k for k in counts if "din_attention_generic_kernel" in k]
         check(len(generic) == 4, f"din_attention: generic kernel variants {generic}, want 4")
     for kernel, c in counts.items():
+        if any(k in kernel for k in NO_PRODUCTS):
+            continue
         check(c["HMMA"] + c["HGMMA"] > 0, f"{name}: {kernel} has no tensor-core instruction")
 
 
@@ -640,8 +655,9 @@ def errors_vs_f64(got: torch.Tensor, want: torch.Tensor, exact: torch.Tensor) ->
 def check_against_plain(kernel: str, got: torch.Tensor, want: torch.Tensor,
                         exact: torch.Tensor, c2_shape: bool) -> None:
     """The kernel within rtol = atol = 1e-5 of the plain version. At a C2
-    shape (one the kernels once refused), where f32 rounding alone exceeds
-    that, the plain version's rounding is not the target: the kernel must
+    shape (one the kernels once refused), and for B2's dw (a sum of B*D
+    products an entry), where f32 rounding alone exceeds that, the plain
+    version's rounding is not the target: the kernel must
     then lie within 1e-5 (absolute and relative) of the f64 function,
     widened by the largest error the plain f32 version makes on the same
     inputs. (B1 at T = 4096 without softmax pools 4096 raw-scored keys into
@@ -763,8 +779,11 @@ def grads_of(fn, inputs, g):
 def check_gradients(gen: torch.Generator) -> None:
     """Each kernel's autograd Function, and its registered operator (the
     training path's), against autograd through the plain version at
-    B = 1024: outputs within the kernel tolerance, gradients too (every
-    backward pass recomputes the plain version)."""
+    B = 1024: outputs within the kernel tolerance, gradients too. B1's
+    backward recomputes through its plain version; B2's runs its backward
+    kernels, which must launch once, and whose dw sums B*D products an
+    entry: there the plain f32 gradient's own rounding may pass the bar,
+    and ``check_against_plain`` holds the kernel to f64 instead."""
     q, k, lengths, params = din_inputs(1024, gen)
     g = torch.randn(1024, 16, generator=gen).cuda()
     plain = lambda q, k, *p: din_kernels.din_attention_plain(q, k, lengths, p, True)  # noqa: E731
@@ -793,19 +812,99 @@ def check_gradients(gen: torch.Generator) -> None:
         cases[f"cin_layer_fwd/layer{layer}/operator"] = (
             cin_kernels.cin_layer_cuda_fn_t, cin_kernels.cin_layer_plain_t, inputs, g)
     for name, (kernel_fn, plain_fn, inputs, g) in cases.items():
+        cin = name.startswith("cin_layer_fwd")
         before = kernel_launches()
+        bwd_before = cin_kernels.cin_layer_bwd_cuda_t.launches
         got, got_grads = grads_of(kernel_fn, inputs, g)
         if name.startswith("din_attention_generic_fwd"):
             check(kernel_launches()["din_attention_generic_fwd"]
                   == before["din_attention_generic_fwd"] + 1, f"{name} did not launch")
+        bwd = cin_kernels.cin_layer_bwd_cuda_t.launches - bwd_before
+        check(bwd == cin, f"{name}: cin_layer_bwd launched {bwd} times, want {int(cin)}")
         want, want_grads = grads_of(plain_fn, inputs, g)
         torch.testing.assert_close(got, want, **TOL)
+        exact = (grads_of(plain_fn, [x.double() for x in inputs], g.double())[1] if cin
+                 else [None] * len(want_grads))
         errs = []
-        for a, b in zip(got_grads, want_grads):
-            torch.testing.assert_close(a, b, **TOL)
+        for a, b, e in zip(got_grads, want_grads, exact):
+            if cin:
+                check_against_plain(name, a, b, e, True)
+            else:
+                torch.testing.assert_close(a, b, **TOL)
             errs.append((a - b).abs().max().item())
         emit(phase="gradient_vs_plain", kernel=name, B=1024, max_abs_err=max(errs),
              grads=len(errs))
+
+
+def cin_backward_bound(xk_t: torch.Tensor, x0_t: torch.Tensor, w: torch.Tensor,
+                       mma_sync_tflops: float) -> dict:
+    """The least time for one CIN layer's gradient (``bounds``): the two
+    GEMMs G.W and G^T.Z, 2*M*H*F*O product FLOP each, with m = (b, d);
+    dxk's and dx0's reductions and forming Z, M*H*F multiply-adds or
+    multiplies each, in f32; g, xk, x0 and w read once, dxk, dx0 and dw
+    written once."""
+    b, d, h = xk_t.shape
+    f, o = x0_t.shape[2], w.shape[0]
+    m = b * d
+    products, rest = 4 * m * h * f * o, 5 * m * h * f
+    nbytes = 4 * (m * (o + 2 * h + 2 * f) + 2 * o * h * f)
+    return bounds(products + rest, products, rest, nbytes, mma_sync_tflops)
+
+
+def check_cin_backward(gen: torch.Generator, card: str, mma_sync_tflops: float):
+    """B2's backward kernels against the plain gradient at both layers and
+    B in {1024, 8192}: each gradient's errors against f64, held by
+    ``check_against_plain`` (dw sums B*D products an entry, where the plain
+    f32 gradient's own rounding may pass the bar), and the kernels' and the
+    plain gradient's device times by CUDA events, cold L2. Returns the
+    largest error against the plain gradient and the times at B = 1024,
+    layer 1."""
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    worst, timed = 0.0, None
+    for b in (1024, 8192):
+        for layer in (0, 1):
+            xk_t, x0_t, w = cin_inputs(b, layer, gen)
+            g = torch.randn(b, 16, w.shape[0], generator=gen).cuda()
+            before = cin_kernels.cin_layer_bwd_cuda_t.launches
+            got = cin_kernels.cin_layer_bwd_cuda_t(xk_t, x0_t, w, g)
+            check(cin_kernels.cin_layer_bwd_cuda_t.launches == before + 1,
+                  "cin_layer_bwd did not launch")
+            want = cin_kernels.cin_layer_vjp_plain(xk_t, x0_t, w, g)
+            exact = cin_kernels.cin_layer_vjp_plain(*(x.double() for x in (xk_t, x0_t, w, g)))
+            torch.cuda.synchronize()
+            errors = {}
+            for name, a, p, e in zip(("dxk", "dx0", "dw"), got, want, exact):
+                errors[name] = dict(max_abs_err=(a - p).abs().max().item(),
+                                    max_abs=p.abs().max().item(), **errors_vs_f64(a, p, e))
+                check_against_plain(f"cin_layer_bwd {name}", a, p, e, True)
+                worst = max(worst, errors[name]["max_abs_err"])
+            kernel_ms, plain_ms = map(statistics.median, times_in_turns(
+                [lambda: cin_kernels.cin_layer_bwd_cuda_t(xk_t, x0_t, w, g),
+                 lambda: cin_kernels.cin_layer_vjp_plain(xk_t, x0_t, w, g)],
+                lambda fn: device_ms(fn, flush), runs=20))
+            least = cin_backward_bound(xk_t, x0_t, w, mma_sync_tflops)
+            emit(phase="kernel_vs_plain", kernel="cin_layer_bwd", B=b, layer=layer,
+                 shape=[list(xk_t.shape), list(x0_t.shape), list(w.shape)], ms=kernel_ms,
+                 plain_ms_no_yardstick=plain_ms, **least, errors=errors, card=card)
+            if (b, layer) == (1024, 1):
+                timed = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=None, **least)
+    # the other shapes, held alike and not timed: O = 10 and 300 (past one
+    # 128-wide panel of g in dz and one o tile in dw, neither a multiple of
+    # 8), H = 300, F = 80, at B = 7 (112 rows, under one tile) and 1024
+    for b, layer in [(7, name) for name in OTHER_CIN_SHAPES] + [(1024, "wide")]:
+        xk_t, x0_t, w = cin_inputs(b, layer, gen)
+        g = torch.randn(b, 16, w.shape[0], generator=gen).cuda()
+        got = cin_kernels.cin_layer_bwd_cuda_t(xk_t, x0_t, w, g)
+        want = cin_kernels.cin_layer_vjp_plain(xk_t, x0_t, w, g)
+        exact = cin_kernels.cin_layer_vjp_plain(*(x.double() for x in (xk_t, x0_t, w, g)))
+        errors = {}
+        for name, a, p, e in zip(("dxk", "dx0", "dw"), got, want, exact):
+            errors[name] = dict(max_abs_err=(a - p).abs().max().item(), **errors_vs_f64(a, p, e))
+            check_against_plain(f"cin_layer_bwd {layer} {name}", a, p, e, True)
+            worst = max(worst, errors[name]["max_abs_err"])
+        emit(phase="cin_backward_shape", B=b, layer=layer,
+             shape=[list(xk_t.shape), list(x0_t.shape), list(w.shape)], errors=errors, card=card)
+    return worst, timed
 
 
 def bf16_ulps(got: torch.Tensor, want: torch.Tensor):
@@ -869,14 +968,12 @@ def run_cli(model: str, rows: int, epochs: int, workdir: str, card: str, extra=(
     in the run)."""
     run = run or model
     model_dir, output_dir = (os.path.join(workdir, run, d) for d in ("model_dir", "output_dir"))
-    din_kernels.din_attention_cuda.launches = 0
-    cin_kernels.cin_layer_cuda_t.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     rc = cli.main([f"--model={model}", *(data or [f"--synthetic={rows}"]), f"--num_epochs={epochs}",
                    f"--model_dir={model_dir}", f"--output_dir={output_dir}", *extra])
     seconds = time.perf_counter() - t0
-    launches = {"din_attention_fwd": din_kernels.din_attention_cuda.launches,
-                "cin_layer_fwd": cin_kernels.cin_layer_cuda_t.launches}
+    launches = kernel_launches()
     check(rc == 0, f"the {model} CLI run exited {rc}")
     check(os.path.exists(os.path.join(model_dir, "best_model")), f"{model}: no best_model")
     check(os.path.exists(os.path.join(output_dir, "predictions.csv")), f"{model}: no predictions.csv")
@@ -905,13 +1002,16 @@ def train_xdeepfm(workdir: str, card: str):
     train_steps, eval_steps = steps_of(XDEEPFM_ROWS)
     layers = len(default_config("xdeepfm").cin_layer_sizes)
     # every train step of both epochs, and 3 eval passes (one an epoch and
-    # the best model's): B2 ran in training and in eval
+    # the best model's): B2 ran in training and in eval, its backward
+    # kernels once a layer in every train step
     want = layers * (2 * train_steps + 3 * eval_steps)
     check(launches["cin_layer_fwd"] == want,
           f"xdeepfm launched cin_layer_fwd {launches['cin_layer_fwd']} times, want {want}")
+    backward = check_backward_launches("xdeepfm", launches, "xdeepfm", 2 * train_steps)
+    emit(phase="train_backward_launches", model="xdeepfm", cin_layer_bwd=backward)
     best_auc = max(h["eval_auc"] for h in history)
     check(best_auc > 0.6, f"xdeepfm eval AUC {best_auc} is not above 0.6")
-    return model_dir, launches["cin_layer_fwd"]
+    return model_dir, launches["cin_layer_fwd"], backward
 
 
 def train_din(workdir: str, card: str):
@@ -1041,13 +1141,25 @@ def serve_din(gen: torch.Generator, card: str):
 def kernel_launches() -> dict:
     return {"din_attention_fwd": din_kernels.din_attention_cuda.launches,
             "din_attention_generic_fwd": din_kernels.din_attention_cuda.generic_launches,
-            "cin_layer_fwd": cin_kernels.cin_layer_cuda_t.launches}
+            "cin_layer_fwd": cin_kernels.cin_layer_cuda_t.launches,
+            "cin_layer_bwd": cin_kernels.cin_layer_bwd_cuda_t.launches}
 
 
 def zero_launches() -> None:
     din_kernels.din_attention_cuda.launches = 0
     din_kernels.din_attention_cuda.generic_launches = 0
     cin_kernels.cin_layer_cuda_t.launches = 0
+    cin_kernels.cin_layer_bwd_cuda_t.launches = 0
+
+
+def check_backward_launches(run: str, got: dict, model: str, train_steps: int) -> int:
+    """B2's backward kernels launched once a CIN layer in each of the run's
+    ``train_steps`` train steps (none for a model without a CIN); returns
+    their launches."""
+    want = len(default_config(model).cin_layer_sizes) * train_steps if model == "xdeepfm" else 0
+    check(got["cin_layer_bwd"] == want,
+          f"{run} launched cin_layer_bwd {got['cin_layer_bwd']} times, want {want}")
+    return got["cin_layer_bwd"]
 
 
 def gathers(events):
@@ -1199,7 +1311,8 @@ def serve_c2_shapes(gen: torch.Generator, card: str) -> dict:
         check(np.all(np.isfinite(got)) and np.all((got >= 0) & (got <= 1)), f"{name}: scores")
         np.testing.assert_allclose(got, want, **TOL)
     emit(phase="serve_c2_launches", launches=launches)
-    want = {"din_attention_fwd": 1, "din_attention_generic_fwd": 1, "cin_layer_fwd": 2}
+    want = {"din_attention_fwd": 1, "din_attention_generic_fwd": 1, "cin_layer_fwd": 2,
+            "cin_layer_bwd": 0}
     check(launches == want, f"C2 serving launched {launches}, want {want}")
     return launches
 
@@ -1412,7 +1525,7 @@ def train_from_files(workdir: str, card: str):
     train_steps, eval_steps = -(-n_train // 1024), -(-n_eval // 1024)
     layers = len(default_config("xdeepfm").cin_layer_sizes)
     requests = {FILE_SERVE_ROWS: {k: v[:FILE_SERVE_ROWS] for k, v in test.items() if k != "labels"}}
-    launches = {"din_attention_fwd": 0, "cin_layer_fwd": 0}
+    launches = {"din_attention_fwd": 0, "cin_layer_fwd": 0, "cin_layer_bwd": 0}
     model_dirs = {}
     for model, fmt, epochs in (("xdeepfm", "npz", 2), ("din", "npz", 2), ("xdeepfm", "parquet", 1)):
         run = f"{model}-{fmt}"
@@ -1422,7 +1535,9 @@ def train_from_files(workdir: str, card: str):
         # every train step, and an eval pass an epoch and the best model's
         want = per_step * (epochs * train_steps + (epochs + 1) * eval_steps)
         check(got[kernel] == want, f"{run} launched {kernel} {got[kernel]} times, want {want}")
-        check(sum(got.values()) == got[kernel], f"{run} launched a kernel of another path: {got}")
+        backward = check_backward_launches(run, got, model, epochs * train_steps)
+        check(sum(got.values()) == got[kernel] + backward,
+              f"{run} launched a kernel of another path: {got}")
         best = max(h["eval_auc"] for h in history)
         emit(phase="file_data_auc", model=model, run=run, epochs=epochs, best_eval_auc=best,
              rank_tpu_calibrated_record=float(np.mean(rank_tpu_seeds(model))),
@@ -1474,9 +1589,9 @@ def quality_phase(workdir: str, card: str) -> dict:
     eval AUC must lie in rank_tpu's recorded range widened by
     ``QUALITY_BAND``. Returns the phase's launches of each kernel."""
     data = parity.calibrated_data(CALIBRATED_SCALE, os.path.join(workdir, "calibrated"))
-    steps = parity.EPOCHS * -(-len(data.train["labels"]) // parity.BATCH_SIZE) + \
-        -(-len(data.eval["labels"]) // parity.BATCH_SIZE)
-    launches = {"din_attention_fwd": 0, "cin_layer_fwd": 0}
+    train_steps = parity.EPOCHS * -(-len(data.train["labels"]) // parity.BATCH_SIZE)
+    steps = train_steps + -(-len(data.eval["labels"]) // parity.BATCH_SIZE)
+    launches = {"din_attention_fwd": 0, "cin_layer_fwd": 0, "cin_layer_bwd": 0}
     for model, kernel in QUALITY_MODELS:
         zero_launches()
         rec = parity.run_calibrated(model, QUALITY_SEED, data)
@@ -1484,7 +1599,9 @@ def quality_phase(workdir: str, card: str) -> dict:
         per_step = len(default_config(model).cin_layer_sizes) if model == "xdeepfm" else 1
         check(got[kernel] == per_step * steps,
               f"{model} launched {kernel} {got[kernel]} times, want {per_step * steps}")
-        check(sum(got.values()) == got[kernel], f"{model} launched a kernel of another path: {got}")
+        backward = check_backward_launches(model, got, model, train_steps)
+        check(sum(got.values()) == got[kernel] + backward,
+              f"{model} launched a kernel of another path: {got}")
         check(rec["protocol"] and rec["rank_tpu"] is not None,
               f"{model} did not run rank_tpu's protocol: {rec}")
         seeds = rank_tpu_seeds(model)
@@ -1497,6 +1614,7 @@ def quality_phase(workdir: str, card: str) -> dict:
         check(band[0] <= rec["port"] <= band[1],
               f"{model} eval AUC {rec['port']} is outside rank_tpu's band {band}")
         launches[kernel] += got[kernel]
+        launches["cin_layer_bwd"] += backward
     return launches
 
 
@@ -1559,7 +1677,7 @@ def fullscale_phase(workdir: str, card: str, log_build) -> dict:
     serve_rows = {k: v[:FULLSCALE_SERVE_ROWS] for k, v in data.eval.items() if k != "labels"}
     record = fullscale.rank_tpu_record()
     out = os.path.join(workdir, "fullscale")
-    launches = {"din_attention_fwd": 0, "cin_layer_fwd": 0}
+    launches = {"din_attention_fwd": 0, "cin_layer_fwd": 0, "cin_layer_bwd": 0}
     for model, kernel in FULLSCALE_MODELS:
         t0 = time.perf_counter()
         zero_launches()
@@ -1588,8 +1706,12 @@ def fullscale_phase(workdir: str, card: str, log_build) -> dict:
               f"{model} eval AUC {rec['eval_auc']} is not above {FULLSCALE_AUC_BAR}")
         check(err <= 1e-5, f"{model} served best model differs from its eval by {err}")
         check(got[kernel] == want, f"{model} launched {kernel} {got[kernel]} times, want {want}")
-        check(sum(got.values()) == got[kernel], f"{model} launched a kernel of another path: {got}")
+        # the backward: every train step and the memory analysis's step
+        backward = check_backward_launches(model, got, model, FULLSCALE_EPOCHS * train_steps + 1)
+        check(sum(got.values()) == got[kernel] + backward,
+              f"{model} launched a kernel of another path: {got}")
         launches[kernel] += got[kernel]
+        launches["cin_layer_bwd"] += backward
     emit(phase="fullscale_seconds", seconds=time.perf_counter() - t_phase, data_seconds=t_data)
     return launches
 
@@ -1758,7 +1880,7 @@ def sharded_phase(workdir: str, card: str) -> dict:
     embedding_backward_repeats(card)
     backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
     kernel = {"xdeepfm": "cin_layer_fwd", "din": "din_attention_fwd"}
-    totals = {"cin_layer_fwd": 0, "din_attention_fwd": 0}
+    totals = {"cin_layer_fwd": 0, "din_attention_fwd": 0, "cin_layer_bwd": 0}
     ones = {}
     for model, mode in SHARDED_RUNS:
         runs = {}
@@ -1773,8 +1895,10 @@ def sharded_phase(workdir: str, card: str) -> dict:
                     f"--table_parallelism={t}", f"--embedding_mode={mode}",
                     f"--model_dir={run_dir}/model_dir", f"--output_dir={run_dir}/output_dir"]
             records = spawn_ranks(t, backend, argv, run_dir)
-            for r in records:
+            for i, r in enumerate(records):
                 totals[kernel[model]] += r["launches"][kernel[model]]
+                totals["cin_layer_bwd"] += check_backward_launches(
+                    f"{name} rank {i}", r["launches"], model, len(r["losses"]))
             runs[t] = (run_dir, records, read_history(f"{run_dir}/output_dir"))
             if t == 1:
                 ones[model] = runs[t]
@@ -1867,12 +1991,13 @@ def profile_traces(workdir: str, card: str) -> dict:
     """``cli.main`` with ``--profile_dir`` for xDeepFM and DIN: one trace,
     holding the kernel's device events, as many as the wrapper counted in
     epoch 1, each with a duration. Returns the runs' launches."""
-    totals = {"cin_layer_fwd": 0, "din_attention_fwd": 0}
+    totals = {"cin_layer_fwd": 0, "din_attention_fwd": 0, "cin_layer_bwd": 0}
     for model, (counter, kernel) in PROFILED_KERNELS.items():
         trace_dir = os.path.join(workdir, f"trace_{model}")
         with epoch_one_launches() as epoch1:
             _, _, launches = run_cli(model, SHARDED_ROWS, 1, workdir, card,
                                      run=f"{model}-profile", extra=[f"--profile_dir={trace_dir}"])
+        check_backward_launches(f"{model}-profile", launches, model, steps_of(SHARDED_ROWS)[0])
         for k in totals:
             totals[k] += launches[k]
         check(os.listdir(trace_dir) == ["trace_rank0.json"],
@@ -1965,12 +2090,13 @@ def precision_runs(workdir: str, card: str) -> dict:
     with open(out_path) as f:
         runs = json.load(f)
     default = np.asarray(runs[0]["losses"])
-    launches = {"cin_layer_fwd": 0, "din_attention_fwd": 0}
+    launches = {"cin_layer_fwd": 0, "din_attention_fwd": 0, "cin_layer_bwd": 0}
     for precision, run, run_dir in zip(PRECISIONS, runs, dirs):
         losses = np.asarray(run["losses"])
         (h,) = read_history(os.path.join(run_dir, "output_dir"))
         check(run["rc"] == 0 and run["launches"]["cin_layer_fwd"] > 0,
               f"{precision}: rc {run['rc']}, launches {run['launches']}")
+        check_backward_launches(f"xdeepfm at {precision}", run["launches"], "xdeepfm", len(losses))
         check(run["precision_after"] == run["precision_before"],
               f"{precision}: the precision went {run['precision_before']} -> "
               f"{run['precision_after']}")
@@ -2303,11 +2429,13 @@ def main(argv=None) -> int:
 
     # 2. build
     build_kernels()
+    mma_sync_tflops = mma_sync_ceiling(card)
 
     # 3. kernels against their plain versions
     gen = torch.Generator().manual_seed(SEED)
     din_err, din_c2_err, generic_err = check_din_kernel(gen)
     cin_err = check_cin_kernel(gen)
+    cin_bwd_err, cin_bwd_timed = check_cin_backward(gen, card, mma_sync_tflops)
     check_bf16_inputs(gen)
     check_gradients(gen)
     if args.kernels_only:
@@ -2318,7 +2446,7 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as workdir:
         log_build = start_fullscale_log(workdir)
         try:
-            xdeepfm_dir, cin_launches = train_xdeepfm(workdir, card)
+            xdeepfm_dir, cin_launches, cin_bwd_launches = train_xdeepfm(workdir, card)
             din_launches = train_din(workdir, card)
             serve_xdeepfm(xdeepfm_dir)
             train_and_serve_zoo(workdir, card)
@@ -2336,8 +2464,8 @@ def main(argv=None) -> int:
     c2_launches = serve_c2_shapes(gen, card)
 
     # 5. times on the card
-    mma_sync_tflops = mma_sync_ceiling(card)
     timings = time_kernels(gen, card, mma_sync_tflops)
+    timings["cin_layer_bwd", 1024] = cin_bwd_timed
     time_file_lengths(file_b1, card, mma_sync_tflops)
     host_overhead(gen, card)
     profile_train_step("xdeepfm", card)
@@ -2369,11 +2497,18 @@ def main(argv=None) -> int:
          cin_launches + file_launches["cin_layer_fwd"] + sharded_launches["cin_layer_fwd"]
          + measure_launches["cin_layer_fwd"] + quality_launches["cin_layer_fwd"]
          + fullscale_launches["cin_layer_fwd"], cin_err),
+        # B2's gradient: replaces no Pallas kernel (rank_tpu's _bwd
+        # recomputes through the plain version)
+        ("cin_layer_bwd", ("cin_layer_bwd", 1024), "rank_tpu_torch/ops/kernels/csrc/cin.cu",
+         None,
+         cin_bwd_launches + file_launches["cin_layer_bwd"] + sharded_launches["cin_layer_bwd"]
+         + measure_launches["cin_layer_bwd"] + quality_launches["cin_layer_bwd"]
+         + fullscale_launches["cin_layer_bwd"], cin_bwd_err),
     ):
         # B = 1024: the batch of the training path; B2 at its heavier layer.
         # library_ms: none for B1 (no single PyTorch call computes DIN
-        # attention); B2: one einsum. c2_shapes: the shapes past the former
-        # limits that the variant ran, at B = 1024.
+        # attention) and B2's gradient; B2: one einsum. c2_shapes: the
+        # shapes past the former limits that the variant ran, at B = 1024.
         kernel = name
         c2 = [{"shape": shape, **{key: t[key] for key in keys}}
               for (k, shape), t in timings.items() if k == kernel and isinstance(shape, str)]

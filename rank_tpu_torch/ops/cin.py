@@ -19,8 +19,9 @@ backend:
   * ``'pallas'``: the same operator (the JAX package's name for its kernel
     backend); raises on CPU tensors;
   * ``'jnp'``: the plain torch version, on any device.
-Both kernel backends train through the operator's gradient, which
-recomputes through the plain version.
+Both kernel backends train through the operator's gradient, which runs
+the backward kernels on CUDA tensors and recomputes through the plain
+version on CPU tensors.
 """
 
 from __future__ import annotations

@@ -18,13 +18,22 @@ H100 and how its design answers that.
   * ``cin_layer_plain_t``: the same function in plain torch ops (the JAX
     ``_reference_t``, with jnp's dtype promotion), the oracle the kernel
     is held against.
+  * ``cin_layer_bwd_cuda_t``: the gradient's kernels (``csrc/cin.cu``,
+    ``cin_layer_bwd``): dxk, dx0 and dw from tiles of G.W kept on chip,
+    without the pair tensor; the same input checks as the forward, with
+    ``grad_out``. ``cin_layer_bwd_cuda_t.launches`` counts its calls. It
+    hands the kernels the weights as ``weight_operand_bwd`` lays them out.
+  * ``cin_layer_vjp``: the gradient on either device: the backward kernel
+    on CUDA tensors (cast to f32, each gradient returned in its input's
+    dtype), ``cin_layer_vjp_plain`` on CPU tensors: the recompute through
+    the plain version that the JAX kernel's ``_bwd``
+    (``rank_tpu/ops/pallas/cin.py:149``) makes, and the oracle the backward
+    kernel is held against.
   * ``torch.ops.rank_tpu_torch.cin_layer_t``: the registered operator. On
     CUDA tensors it casts the inputs to f32, launches ``cin_layer_cuda_t``
     and returns the result in the inputs' promoted dtype; on CPU tensors
     it is the plain version. Its fake implementation lets ``torch.export``
-    trace it as one node, and its gradient recomputes through the plain
-    version, as the JAX kernel's ``_bwd`` (``rank_tpu/ops/pallas/cin.py:149``)
-    does: there is no backward kernel.
+    trace it as one node, and its gradient is ``cin_layer_vjp``.
   * ``CINLayerFn``: the same gradient as a ``torch.autograd.Function``
     around any forward implementation (a CPU test runs it with the plain
     forward, ``chip_smoke.py`` with ``cin_layer_cuda_t``).
@@ -57,6 +66,11 @@ def library() -> ctypes.CDLL:
         lib = _build.load("cin")
         lib.cin_layer_fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         lib.cin_layer_fwd.restype = ctypes.c_int
+        lib.cin_layer_bwd_splits.argtypes = [ctypes.c_int] * 5
+        lib.cin_layer_bwd_splits.restype = ctypes.c_int
+        lib.cin_layer_bwd.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+                                      + [ctypes.c_void_p])
+        lib.cin_layer_bwd.restype = ctypes.c_int
         lib.cin_layer_error_string.argtypes = [ctypes.c_int]
         lib.cin_layer_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -87,38 +101,68 @@ def weight_operand(w: torch.Tensor) -> torch.Tensor:
     return wop.reshape(f * hp, op)
 
 
-def check_shapes(xk_t: torch.Tensor, x0_t: torch.Tensor, w: torch.Tensor) -> None:
+def backward_h_chunk(h: int) -> int:
+    """The h columns an h-chunk of the backward kernels holds: H padded to
+    8, then to 16, 32 or 64; above 64, chunks of 64. ``cin_layer_bwd``
+    refuses a layout of another width (``csrc/cin.cu``: ``bwd_h_chunk``)."""
+    hp = padded_h(h)
+    return next(c for c in (8, 16, 32, 64) if hp <= c or c == 64)
+
+
+def weight_operand_bwd(w: torch.Tensor) -> torch.Tensor:
+    """(O, H, F) -> the backward kernel's B operand (NHC, F, Op8, HSW):
+    [c, f, o, j] holds w[o, c*HSW + j, f], zero in the padding (o >= O,
+    h >= H). HSW is ``backward_h_chunk(H)``, NHC the h-chunks that cover
+    H padded to 8, Op8 is O rounded up to 8 (a k-step of G.W is 8
+    consecutive o)."""
+    o, h, f = w.shape
+    hsw = backward_h_chunk(h)
+    nhc, op8 = -(-padded_h(h) // hsw), -(-o // 8) * 8
+    wb = w.new_zeros((f, op8, nhc * hsw))
+    wb[:, :o, :h] = w.permute(2, 0, 1)
+    return wb.reshape(f, op8, nhc, hsw).permute(2, 0, 1, 3).contiguous()
+
+
+def check_shapes(xk_t: torch.Tensor, x0_t: torch.Tensor, w: torch.Tensor,
+                 who: str = "cin_layer_cuda_t") -> None:
     """Raise unless the shapes make (B, D, H), (B, D, F), (O, H, F) with
     H, F, O >= 1."""
     for name, x in (("xk_t", xk_t), ("x0_t", x0_t), ("w", w)):
         if x.dim() != 3:
-            raise ValueError(f"cin_layer_cuda_t: {name} has shape {tuple(x.shape)}, needs 3 dims")
+            raise ValueError(f"{who}: {name} has shape {tuple(x.shape)}, needs 3 dims")
     b, d, h = xk_t.shape
     f, o = x0_t.shape[2], w.shape[0]
     if tuple(x0_t.shape[:2]) != (b, d) or tuple(w.shape) != (o, h, f):
         raise ValueError(
-            f"cin_layer_cuda_t: shapes xk_t {tuple(xk_t.shape)}, x0_t {tuple(x0_t.shape)}, "
+            f"{who}: shapes xk_t {tuple(xk_t.shape)}, x0_t {tuple(x0_t.shape)}, "
             f"w {tuple(w.shape)} do not make (B, D, H), (B, D, F), (O, H, F)"
         )
     if min(h, f, o) < 1:
-        raise ValueError(f"cin_layer_cuda_t: H={h}, F={f}, O={o}; each must be at least 1")
+        raise ValueError(f"{who}: H={h}, F={f}, O={o}; each must be at least 1")
+
+
+def check_on_card(who: str, named: dict) -> None:
+    """Raise unless every tensor of ``named`` is a contiguous f32 CUDA tensor
+    on the first one's (``xk_t``'s) device."""
+    for name, x in named.items():
+        if x.dtype != torch.float32:
+            raise TypeError(f"{who}: {name} is {x.dtype}, needs torch.float32")
+        if not x.is_contiguous():
+            raise ValueError(f"{who}: {name} is not contiguous")
+    first = next(iter(named.values()))
+    for name, x in named.items():
+        if x.device.type != "cuda" or x.device != first.device:
+            raise ValueError(
+                f"{who} needs every input on one CUDA device; "
+                f"{name} is on {x.device}, xk_t on {first.device}"
+            )
 
 
 def cin_layer_cuda_t(xk_t: torch.Tensor, x0_t: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA kernel; raises unless every input is a contiguous f32
     CUDA tensor on one device with shapes the kernel takes."""
     check_shapes(xk_t, x0_t, w)
-    named = {"xk_t": xk_t, "x0_t": x0_t, "w": w}
-    for name, x in named.items():
-        if x.device.type != "cuda" or x.device != xk_t.device:
-            raise ValueError(
-                f"cin_layer_cuda_t needs every input on one CUDA device; "
-                f"{name} is on {x.device}, xk_t on {xk_t.device}"
-            )
-        if x.dtype != torch.float32:
-            raise TypeError(f"cin_layer_cuda_t: {name} is {x.dtype}, needs torch.float32")
-        if not x.is_contiguous():
-            raise ValueError(f"cin_layer_cuda_t: {name} is not contiguous")
+    check_on_card("cin_layer_cuda_t", {"xk_t": xk_t, "x0_t": x0_t, "w": w})
     b, d, h = xk_t.shape
     f = x0_t.shape[2]
     o = w.shape[0]
@@ -144,13 +188,67 @@ def cin_layer_cuda_t(xk_t: torch.Tensor, x0_t: torch.Tensor, w: torch.Tensor) ->
 cin_layer_cuda_t.launches = 0
 
 
-def cin_layer_vjp(xk_t, x0_t, w, grad_out):
+def cin_layer_bwd_cuda_t(xk_t: torch.Tensor, x0_t: torch.Tensor, w: torch.Tensor,
+                         grad_out: torch.Tensor):
+    """Launch the backward kernels: (dxk_t, dx0_t, dw) for ``grad_out`` =
+    dL/dout (B, D, O). Raises unless every input is a contiguous f32 CUDA
+    tensor on one device with shapes the kernels take."""
+    who = "cin_layer_bwd_cuda_t"
+    check_shapes(xk_t, x0_t, w, who)
+    b, d, h = xk_t.shape
+    f, o = x0_t.shape[2], w.shape[0]
+    if tuple(grad_out.shape) != (b, d, o):
+        raise ValueError(f"{who}: grad_out has shape {tuple(grad_out.shape)}, needs {(b, d, o)}")
+    check_on_card(who, {"xk_t": xk_t, "x0_t": x0_t, "w": w, "grad_out": grad_out})
+    dxk, dx0 = torch.empty_like(xk_t), torch.empty_like(x0_t)
+    if b * d == 0:
+        return dxk, dx0, torch.zeros_like(w)
+    dw = torch.empty_like(w)
+    wb = weight_operand_bwd(w)
+    lib = library()
+    device = xk_t.device.index
+    splits = lib.cin_layer_bwd_splits(b * d, h, f, o, device)
+    if splits < 1:
+        raise RuntimeError(
+            f"cin_layer_bwd_splits failed: {lib.cin_layer_error_string(-splits).decode()}")
+    part = torch.empty((splits, o, h, f), dtype=torch.float32, device=xk_t.device)
+    stream = torch.cuda.current_stream(xk_t.device).cuda_stream
+    err = lib.cin_layer_bwd(
+        grad_out.data_ptr(), xk_t.data_ptr(), x0_t.data_ptr(), wb.data_ptr(), dxk.data_ptr(),
+        dx0.data_ptr(), dw.data_ptr(), part.data_ptr(), splits, wb.shape[-1], b * d, h, f, o,
+        device, stream,
+    )
+    if err != 0:
+        raise RuntimeError(
+            f"cin_layer_bwd launch failed: {lib.cin_layer_error_string(err).decode()} "
+            f"(B={b}, D={d}, H={h}, F={f}, O={o})"
+        )
+    cin_layer_bwd_cuda_t.launches += 1
+    return dxk, dx0, dw
+
+
+cin_layer_bwd_cuda_t.launches = 0
+
+
+def cin_layer_vjp_plain(xk_t, x0_t, w, grad_out):
     """The gradients of xk_t, x0_t and w, recomputed through the plain
-    version (the JAX kernel's ``_bwd``). Its span runs on whatever thread
-    autograd runs the backward on."""
+    version (the JAX kernel's ``_bwd``)."""
+    _, pullback = torch.func.vjp(cin_layer_plain_t, xk_t, x0_t, w)
+    return pullback(grad_out)
+
+
+def cin_layer_vjp(xk_t, x0_t, w, grad_out):
+    """The gradients of xk_t, x0_t and w: on CUDA tensors the backward
+    kernels, on inputs cast to f32, with each gradient returned in its
+    input's dtype; on CPU tensors ``cin_layer_vjp_plain``. Its span runs on
+    whatever thread autograd runs the backward on."""
     with tracing.span("cin.backward"):
-        _, pullback = torch.func.vjp(cin_layer_plain_t, xk_t, x0_t, w)
-        return pullback(grad_out)
+        if xk_t.device.type != "cuda":
+            return cin_layer_vjp_plain(xk_t, x0_t, w, grad_out)
+        inputs = (xk_t, x0_t, w)
+        grads = cin_layer_bwd_cuda_t(*(cast_contiguous(x, torch.float32)
+                                       for x in (*inputs, grad_out)))
+        return tuple(cast_contiguous(gr, x.dtype) for gr, x in zip(grads, inputs))
 
 
 class CINLayerFn(torch.autograd.Function):

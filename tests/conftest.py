@@ -28,3 +28,4 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: full-width or multi-seed cases, left out of tier-1 (-m 'not slow')"
     )
+    config.addinivalue_line("markers", "card: needs a CUDA card; skips without one")

@@ -97,6 +97,62 @@ def test_cin_layer_fn_gradients_match_jax():
         np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(ref), **GRAD_TOL)
 
 
+def test_cpu_gradient_goes_through_the_plain_vjp():
+    """On CPU tensors the operator's gradient and ``CINLayerFn``'s are the
+    plain vjp, and the backward kernels' counter does not move."""
+    xk_t, x0_t, w = _torch(*_layer_inputs(b=7, h=9, o=6, seed=6))
+    g = torch.from_numpy(np.random.default_rng(7).normal(size=(7, 16, 6)).astype(np.float32))
+    want = tk.cin_layer_vjp_plain(xk_t, x0_t, w, g)
+    before = tk.cin_layer_bwd_cuda_t.launches
+    for route in (tk.cin_layer_t, lambda *x: tk.CINLayerFn.apply(tk.cin_layer_plain_t, *x)):
+        leaves = [x.clone().requires_grad_() for x in (xk_t, x0_t, w)]
+        route(*leaves).backward(g)
+        for leaf, ref in zip(leaves, want):
+            torch.testing.assert_close(leaf.grad, ref, rtol=0, atol=0)
+    assert tk.cin_layer_bwd_cuda_t.launches == before
+
+
+@pytest.mark.parametrize("fault", ["cpu", "bf16", "non_contiguous", "grad_shape"])
+def test_backward_kernel_request_raises(fault):
+    """The backward kernels' wrapper checks its inputs as the forward's
+    does, ``grad_out`` among them; on the CPU it never computes."""
+    xk_t, x0_t, w = _torch(*_layer_inputs(b=2))
+    args = dict(xk_t=xk_t, x0_t=x0_t, w=w, grad_out=torch.zeros(2, 16, 10))
+    error, match = ValueError, "CUDA device"
+    if fault == "bf16":
+        args["grad_out"] = args["grad_out"].bfloat16()
+        error, match = TypeError, "float32"
+    elif fault == "non_contiguous":
+        args["x0_t"] = x0_t.transpose(0, 1).contiguous().transpose(0, 1)
+        match = "contiguous"
+    elif fault == "grad_shape":
+        args["grad_out"] = torch.zeros(2, 16, 9)
+        match = "grad_out"
+    with pytest.raises(error, match=match):
+        tk.cin_layer_bwd_cuda_t(**args)
+
+
+@pytest.mark.parametrize("h, o", [(7, 128), (64, 128), (12, 10), (24, 5), (300, 130)])
+def test_backward_weight_operand_matches_einsum(h, o):
+    """``weight_operand_bwd`` lays w out as (h-chunk, f, o, h): the
+    operand's product with g over o is the einsum's P_f = sum_o g w[o, :, f],
+    and the padding past H and O is zero."""
+    gen = torch.Generator().manual_seed(h)
+    f, m = 3, 5
+    w, g = torch.randn(o, h, f, generator=gen), torch.randn(m, o, generator=gen)
+    wb = tk.weight_operand_bwd(w)
+    hsw, op8 = tk.backward_h_chunk(h), -(-o // 8) * 8
+    nhc = wb.shape[0]
+    assert wb.shape == (nhc, f, op8, hsw) and hsw in (8, 16, 32, 64)
+    assert nhc * hsw >= h > (nhc - 1) * hsw and (nhc == 1 or hsw == 64)
+    flat = wb.permute(1, 2, 0, 3).reshape(f, op8, nhc * hsw)
+    torch.testing.assert_close(flat[:, :o, :h], w.permute(2, 0, 1), rtol=0, atol=0)
+    assert not flat[:, o:].any() and not flat[:, :, h:].any()
+    g_pad = torch.cat([g, torch.zeros(m, op8 - o)], dim=1)
+    got = torch.einsum("mo,fon->mfn", g_pad, flat)
+    torch.testing.assert_close(got[..., :h], torch.einsum("mo,ohf->mfh", g, w), **TOL)
+
+
 @pytest.mark.parametrize("use_softmax", [False, True])
 def test_din_attention_fn_gradients_match_jax(use_softmax):
     """B1's autograd Function, run with the plain forward, against jax.grad
