@@ -2,7 +2,9 @@
 (port of ``rank_tpu/models/base.py``).
 
 ``ModelConfig`` is the JAX package's, field for field and default for
-default, so one config names the same model on both sides. Fields of
+default, so one config names the same model on both sides, and adds one
+field of its own, ``cuda_graphs``, which changes how the port dispatches
+DIEN's training step and no number. Fields of
 models not ported yet are carried and ignored; so are ``attn_impl`` (three
 TPU formulations of one function, which the port computes once) and
 ``gru_unroll`` (a ``lax.scan`` unroll factor).
@@ -93,6 +95,11 @@ class ModelConfig:
     use_aux_loss: bool = False
     aux_loss_weight: float = 1.0
     gru_unroll: int = 5
+    # the port's own: DIEN trains on the card from CUDA graphs, stage by
+    # stage (models/sequence.py, utils/graphs.py); off by default, since
+    # each new batch shape (a ragged last batch) costs a capture and keeps
+    # its graphs' memory
+    cuda_graphs: bool = False
     # multi-task (ESMM/MMOE/PLE)
     tasks: Tuple[str, ...] = ("read_comment", "like", "click_avatar")
     task_weighting: str = "sum"
@@ -120,6 +127,14 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+PORT_ONLY_FIELDS = ("cuda_graphs",)
+
+
+def jax_fields(cfg: ModelConfig) -> dict:
+    """``cfg``'s fields that the JAX package's ``ModelConfig`` has too."""
+    return {k: v for k, v in dataclasses.asdict(cfg).items() if k not in PORT_ONLY_FIELDS}
 
 
 class RankModel(nn.Module):

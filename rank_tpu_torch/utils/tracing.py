@@ -10,8 +10,17 @@ microseconds.
 The flag is ``torch.autograd.profiler._is_profiler_enabled``, which a
 running profiler sets for the whole process. The C++ ``_profiler_enabled()`` is
 per thread, and a backward that autograd runs on its device thread could
-miss it. No span opens inside an ``nn.Module.forward``, where it would
-enter ``torch.export`` programs and CUDA-graph captures.
+miss it.
+
+Spans open around the steps of the train step and of ``Predictor``, around
+the kernels' backward, and inside one ``nn.Module.forward``: the GRU's
+(``ops/rnn.py``), which opens ``rnn.gru`` or ``rnn.augru`` once a call
+around its loop over T, since the recurrence runs only inside a forward.
+That is safe because the flag is read when the span opens: without a
+profiler the span is the shared null context, so a ``torch.export``
+program or a CUDA-graph capture made without one holds no profiler op
+(``tests/test_torch_dien_spans.py``). Open no span inside a step of a
+loop, where it would cost its microseconds a timestep under a profiler.
 """
 
 from __future__ import annotations

@@ -8,6 +8,7 @@ agree to 1e-5 and logits to 1e-4 (the bar of tests/test_forward_parity.py).
 """
 
 import ast
+import dataclasses
 import os
 import subprocess
 import sys
@@ -32,6 +33,7 @@ from rank_tpu_torch import WECHAT_SCHEMA, Predictor, build_model, default_config
 from rank_tpu_torch.data.synthetic import make_synthetic_dataset
 from rank_tpu_torch.embedding.collection import table_specs
 from rank_tpu_torch.interop import state_dict_from_flax
+from rank_tpu_torch.models.base import jax_fields
 from rank_tpu_torch.ops.mlp import MLPTower
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -163,7 +165,8 @@ def test_config_defaults_match_jax():
 
     assert sorted(DEFAULT_CONFIGS) == sorted(JAX_DEFAULTS)
     for name, cfg in JAX_DEFAULTS.items():
-        assert repr(DEFAULT_CONFIGS[name]) == repr(cfg), name
+        assert jax_fields(DEFAULT_CONFIGS[name]) == dataclasses.asdict(cfg), name
+        assert not DEFAULT_CONFIGS[name].cuda_graphs, name  # the port's own field, off
 
 
 def test_interop_raises_on_missing_and_leftover_keys():

@@ -41,12 +41,13 @@ from rank_tpu.train import Trainer as JaxTrainer
 from rank_tpu.train.staged import StagedRunner as JaxStagedRunner
 from rank_tpu_torch import WECHAT_SCHEMA, ModelConfig, parity
 from rank_tpu_torch.interop import state_dict_from_flax
+from rank_tpu_torch.models.base import jax_fields
 from rank_tpu_torch.train import TrainConfig, Trainer
 
 ROOT = Path(__file__).resolve().parent.parent
 # fields of the port's configs that rank_tpu's lack (none: the port's
 # ModelConfig and TrainConfig are rank_tpu's, field for field)
-PORT_ONLY_FIELDS = {"ModelConfig": set(), "TrainConfig": set()}
+PORT_ONLY_FIELDS = {"ModelConfig": {"cuda_graphs"}, "TrainConfig": set()}
 READOUT_SCALE = 0.005
 READOUT_TOL = 1e-5
 
@@ -192,7 +193,7 @@ def interpret_pallas(monkeypatch):
 @pytest.mark.parametrize("model", ["xdeepfm", "din", "mmoe", "esmm"])
 def test_eval_readout_matches_jax(model, small_log, interpret_pallas):
     model_cfg, train_cfg = parity.calib_config(model, 42)
-    jtrainer = JaxTrainer(JAX_WECHAT_SCHEMA, JaxModelConfig(**dataclasses.asdict(model_cfg)),
+    jtrainer = JaxTrainer(JAX_WECHAT_SCHEMA, JaxModelConfig(**jax_fields(model_cfg)),
                           JaxTrainConfig(**dataclasses.asdict(train_cfg)))
     jrunner = JaxStagedRunner(jtrainer, small_log.train, small_log.eval, train_cfg.batch_size)
     jstate = jrunner.init_state()

@@ -18,6 +18,7 @@ from rank_tpu.train import Trainer as JaxTrainer
 from rank_tpu_torch import WECHAT_SCHEMA, parity
 from rank_tpu_torch.data.loader import ArrayLoader
 from rank_tpu_torch.interop import state_dict_from_flax
+from rank_tpu_torch.models.base import jax_fields
 from rank_tpu_torch.train import Trainer
 from torch_jax_carry import load_jax_state
 
@@ -74,7 +75,7 @@ def test_long_training_matches_jax_step_by_step(model, weighting, small_log):
     batches = list(ArrayLoader(small_log.train, LONG_BATCH, shuffle=True, seed=5))[:LONG_STEPS]
     assert len(batches) == LONG_STEPS
 
-    jtrainer = JaxTrainer(JAX_WECHAT_SCHEMA, JaxModelConfig(**dataclasses.asdict(model_cfg)),
+    jtrainer = JaxTrainer(JAX_WECHAT_SCHEMA, JaxModelConfig(**jax_fields(model_cfg)),
                           JaxTrainConfig(**dataclasses.asdict(train_cfg)))
     jstate = jtrainer.init_state(batches[0])
     jstep = jtrainer._get_compiled("train")

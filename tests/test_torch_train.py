@@ -42,6 +42,7 @@ from rank_tpu_torch.cli import build_parser, main, model_config_from_args
 from rank_tpu_torch.data.loader import ArrayLoader, shard_for_process, split_train_test
 from rank_tpu_torch.data.synthetic import make_synthetic_dataset
 from rank_tpu_torch.interop import state_dict_from_flax
+from rank_tpu_torch.models.base import jax_fields
 from rank_tpu_torch.ops.activations import BatchNorm
 from rank_tpu_torch.train import TrainConfig, Trainer
 from rank_tpu_torch.train import metrics as M
@@ -404,7 +405,7 @@ def test_cli_parser_matches_jax():
 
     got_cfg = model_config_from_args(build_parser().parse_args(argv))
     want_cfg = jax_model_config(jax_build_parser().parse_args(argv))
-    assert dataclasses.asdict(got_cfg) == dataclasses.asdict(want_cfg)
+    assert jax_fields(got_cfg) == dataclasses.asdict(want_cfg)
 
 
 def test_training_entry_points_raise_without_cuda(monkeypatch, tmp_path):

@@ -44,6 +44,7 @@ from rank_tpu.train.staged import unpack_columns
 from rank_tpu_torch import WECHAT_SCHEMA, parity
 from rank_tpu_torch.data.loader import num_rows
 from rank_tpu_torch.interop import state_dict_from_flax
+from rank_tpu_torch.models.base import jax_fields
 from rank_tpu_torch.train import Trainer
 from torch_jax_carry import JaxOrderRunner, load_jax_state
 
@@ -80,7 +81,7 @@ def whole_runs(case, data):
     and, for epoch 1, whether every batch of the two orders was equal."""
     model_cfg, train_cfg = configs(case)
     bs = train_cfg.batch_size
-    jtrainer = JaxTrainer(JAX_WECHAT_SCHEMA, JaxModelConfig(**dataclasses.asdict(model_cfg)),
+    jtrainer = JaxTrainer(JAX_WECHAT_SCHEMA, JaxModelConfig(**jax_fields(model_cfg)),
                           JaxTrainConfig(**dataclasses.asdict(train_cfg)), mesh=make_mesh(1))
     jrunner = JaxStagedRunner(jtrainer, data.train, data.eval, bs)
     jstate = jrunner.init_state()

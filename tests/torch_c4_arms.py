@@ -70,6 +70,7 @@ from rank_tpu.train import Trainer as JaxTrainer  # noqa: E402
 from rank_tpu.train.staged import StagedRunner as JaxStagedRunner  # noqa: E402
 from rank_tpu_torch import WECHAT_SCHEMA, parity  # noqa: E402
 from rank_tpu_torch.models import default_config  # noqa: E402
+from rank_tpu_torch.models.base import jax_fields  # noqa: E402
 from rank_tpu_torch.train import TrainConfig, Trainer  # noqa: E402
 from rank_tpu_torch.train.staged import StagedRunner  # noqa: E402
 from torch_jax_carry import JaxOrderRunner, jax_initial_state, load_jax_state  # noqa: E402
@@ -182,7 +183,7 @@ def run_arm(protocol: str, model: str, arm_name: str, seed: int, cache_dir=None,
     t0 = time.perf_counter()
 
     def jax_trainer():
-        return JaxTrainer(JAX_WECHAT_SCHEMA, JaxModelConfig(**dataclasses.asdict(model_cfg)),
+        return JaxTrainer(JAX_WECHAT_SCHEMA, JaxModelConfig(**jax_fields(model_cfg)),
                           JaxTrainConfig(**dataclasses.asdict(train_cfg)))
 
     if arm.framework == "jax":
@@ -256,7 +257,7 @@ def untrained_rows(protocol: str, model: str, seed: int, feature: str = "feedid"
     runner = JaxOrderRunner(trainer, data.train, data.eval, bs)
     state = trainer.init_state()
     own = {k: v.clone() for k, v in state["model"].state_dict().items()}
-    jtrainer = JaxTrainer(JAX_WECHAT_SCHEMA, JaxModelConfig(**dataclasses.asdict(model_cfg)),
+    jtrainer = JaxTrainer(JAX_WECHAT_SCHEMA, JaxModelConfig(**jax_fields(model_cfg)),
                           JaxTrainConfig(**dataclasses.asdict(train_cfg)))
     load_jax_state(trainer, state, jax.device_get(jax_initial_state(jtrainer, data.train, bs)))
     carried = {k: v.clone() for k, v in state["model"].state_dict().items()}

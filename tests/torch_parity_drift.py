@@ -37,6 +37,7 @@ from rank_tpu.train import Trainer as JaxTrainer  # noqa: E402
 from rank_tpu_torch import WECHAT_SCHEMA, parity  # noqa: E402
 from rank_tpu_torch.data.loader import ArrayLoader  # noqa: E402
 from rank_tpu_torch.interop import state_dict_from_flax  # noqa: E402
+from rank_tpu_torch.models.base import jax_fields  # noqa: E402
 from rank_tpu_torch.train import Trainer  # noqa: E402
 
 WEIGHTINGS = {"mmoe": "sum"}
@@ -60,7 +61,7 @@ def drift(model: str, small_log) -> dict:
     batches = list(ArrayLoader(small_log.train, tp.LONG_BATCH, shuffle=True,
                                seed=5))[:tp.LONG_STEPS]
 
-    jtrainer = JaxTrainer(JAX_WECHAT_SCHEMA, JaxModelConfig(**dataclasses.asdict(model_cfg)),
+    jtrainer = JaxTrainer(JAX_WECHAT_SCHEMA, JaxModelConfig(**jax_fields(model_cfg)),
                           JaxTrainConfig(**dataclasses.asdict(train_cfg)))
     jstate = jtrainer.init_state(batches[0])
     host = jax.device_get(jstate)
