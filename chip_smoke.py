@@ -15,7 +15,9 @@ Phases; any failure raises and the script exits non-zero:
      then ``cuobjdump -sass`` of each library counts the tensor-core
      instructions (HMMA, HGMMA) of each kernel, and fails if a kernel has
      none (every kernel, B1's generic kernel's four variants among them,
-     but B2's sum of partial weight gradients, which makes no product);
+     but B2's sum of partial weight gradients, which makes no product; the
+     sequence kernels of ``csrc/gru_sequence.cu`` run f32 FMAs on the CUDA
+     cores by design and are not counted);
   3. kernels vs plain: each kernel against its plain torch version on the
      card, within rtol/atol 1e-5: B1 (DIN attention) at B in {1, 7, 256,
      1024, 8192}, lengths that include 0, 1, 15, 16, 17, 49 and 50, both
@@ -47,7 +49,12 @@ Phases; any failure raises and the script exits non-zero:
      through their autograd Function and their registered operator against
      autograd through the plain version, at B = 1024 (B1 also through its
      generic kernel's operator at D = 128; B2's through its backward
-     kernels, which must launch once a backward);
+     kernels, which must launch once a backward); then DIEN's sequence
+     kernels (``gru_seq_fwd``, ``gru_seq_bwd``) against their plain
+     versions and against the f64 plain versions at B = 1024, T = 50,
+     D = H = 36 for gru, agru and augru (``kernel_vs_plain`` lines with
+     ``kernel="gru_seq"``), with their times beside their bounds and the
+     times of the paths they replace (``check_gru_kernel``);
   4. main paths, each with the launch counts zeroed just before it and
      read just after; every kernel of the path must have launched:
      a. training: ``rank_tpu_torch.cli.main`` on ``--model=xdeepfm
@@ -77,7 +84,10 @@ Phases; any failure raises and the script exits non-zero:
         and at bf16; and exported like xDeepFM (B1 must launch);
      d. the rest of the single-task zoo (slice 4: afm, autoint, bst, dcn,
         deepcrossing, deepfm, dien, ffm, fibinet, flen, fwfm, pnn,
-        widedeep), which runs no hand-written kernel: each trains through
+        widedeep), which runs no hand-written kernel but DIEN's sequence
+        kernels (in DIEN's run exactly one forward launch a recurrence a
+        forward, one backward launch a recurrence a train step, counted
+        from the run's steps): each trains through
         ``cli.main`` at ``default_config`` on the full schema
         (``--synthetic=100000 --num_epochs=1``); the loss must be finite,
         ``best_model`` and ``predictions.csv`` must exist, and where the
@@ -249,11 +259,14 @@ from rank_tpu_torch.ops.cin import xavier_uniform_
 from rank_tpu_torch.ops.kernels import _build
 from rank_tpu_torch.ops.kernels import cin as cin_kernels
 from rank_tpu_torch.ops.kernels import din_attention as din_kernels
+from rank_tpu_torch.ops.kernels import gru_sequence as gru_kernels
 from rank_tpu_torch.ops.mlp import promoted_dtype
+from rank_tpu_torch.ops import rnn as rnn_ops
+from rank_tpu_torch.ops.rnn import AttentionalGRU
 from rank_tpu_torch.train import TrainConfig, Trainer
 from rank_tpu_torch.train import loop as train_loop
 from rank_tpu_torch.train.staged import StagedRunner
-from rank_tpu_torch.utils import op_bytes, roofline
+from rank_tpu_torch.utils import graphs, op_bytes, roofline
 # Published H100 SXM peaks (NVIDIA data sheet, dense): f32 outside the
 # tensor cores, TF32 on the tensor cores, and HBM3. The bounds are stated
 # against them.
@@ -573,12 +586,13 @@ def top_device(events, n: int = 8):
 
 def build_kernels() -> None:
     t0 = time.perf_counter()
-    kernels = ("din_attention", "cin")
-    names = kernels + ("mma_ceiling",)
+    kernels = ("din_attention", "cin")  # on the tensor cores
+    names = kernels + ("gru_sequence", "mma_ceiling")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         reports = dict(zip(names, pool.map(lambda n: _build.build(n)[1], names)))
     din_kernels.library()
     cin_kernels.library()
+    gru_kernels.library()
     emit(phase="build", seconds=time.perf_counter() - t0,
          ptxas={name: [line.strip() for line in report.splitlines()
                        if "registers" in line or "Compiling entry" in line or "spill" in line]
@@ -774,6 +788,170 @@ def grads_of(fn, inputs, g):
     leaves = [x.detach().requires_grad_() for x in inputs]
     out = fn(*leaves)
     return out, torch.autograd.grad(out, leaves, g)
+
+
+GRU_SHAPE = (1024, 50, 36, 36)  # DIEN's cell: B, T, D, H
+
+
+def gru_inputs(mode: str, gen: torch.Generator, shape=GRU_SHAPE):
+    """An ``AttentionalGRU`` of DIEN's widths (flax-xavier kernels, biases
+    U(-0.5, 0.5)) and its inputs as the cell gives them: N(0,1) x, lengths
+    uniform in [0, T] with ``RAGGED_LENGTHS`` first and a full last row,
+    att in [0, 1) for agru and augru; on the card, x and att requiring
+    gradients."""
+    b, t, d, h = shape
+    cell = AttentionalGRU(d, h, mode, generator=gen)
+    with torch.no_grad():
+        for p in (cell.gates_bias, cell.candidate_bias):
+            p.uniform_(-0.5, 0.5, generator=gen)
+    x = torch.randn(b, t, d, generator=gen)
+    lengths = torch.randint(0, t + 1, (b,), generator=gen, dtype=torch.int32)
+    lengths[: len(RAGGED_LENGTHS)] = torch.tensor(RAGGED_LENGTHS, dtype=torch.int32).clamp(max=t)
+    lengths[-1] = t
+    att = torch.rand(b, t, generator=gen) if mode != "gru" else None
+    leaf = lambda v: None if v is None else v.cuda().requires_grad_()  # noqa: E731
+    return cell.cuda(), leaf(x), lengths.cuda(), leaf(att)
+
+
+def gru_bounds(lengths: torch.Tensor, t: int, h: int) -> dict:
+    """The least times of the two kernels (``bound``, f32 outside the tensor
+    cores), counting the valid steps only: 2 * 3H * H FLOP a row's step in
+    each direction (forward h U_g and (r h) U_c; backward dc U_c^T and
+    dg U_g^T). Forward bytes: P and a_t of the valid steps read; outputs,
+    u, r, c, h and r*h of every step written, the final state. Backward:
+    u, r, c, h, the output gradient and a_t of the valid steps read; the
+    pre-activation gradients and d a_t of every step written. The weights
+    (3 H^2) read once a block from L2 are left out. The chain of T
+    dependent steps, which binds, is no roofline and is not counted."""
+    b = lengths.numel()
+    valid = int(lengths.clamp(0, t).sum())
+    flops = valid * 6 * h * h
+    fwd = bound(flops, 4 * (valid * (3 * h + 1) + b * t * 6 * h + b * h))
+    bwd = bound(flops, 4 * (valid * (6 * h + 1) + b * t * (3 * h + 1) + b * h))
+    return {"fwd_bound_ms": fwd[0], "fwd_bound_by": fwd[1],
+            "bwd_bound_ms": bwd[0], "bwd_bound_by": bwd[1]}
+
+
+def captured(fn):
+    """``fn`` (no autograd) captured in a CUDA graph after a warm-up on a
+    side stream; returns the graph's replay. The plain versions' hundreds of
+    small ops then run without the host's gaps between them."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph.replay
+
+
+def fwd_bwd_ms(cell, fn, x, lengths, att, flush: torch.Tensor):
+    """(forward ms, backward ms) by CUDA events of one call of
+    ``fn(cell, x, lengths, att)`` and of the backward of a weighted sum of
+    its outputs, cold L2 before the forward; the stream spins first, as in
+    ``device_ms``."""
+    args = (x, lengths) if att is None else (x, lengths, att)
+    flush.zero_()
+    torch.cuda._sleep(5_000_000)
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    events[0].record()
+    outs, h = fn(cell, *args)
+    events[1].record()
+    torch.autograd.backward([outs, h], [torch.ones_like(outs), torch.ones_like(h)])
+    events[2].record()
+    events[2].synchronize()
+    return events[0].elapsed_time(events[1]), events[1].elapsed_time(events[2])
+
+
+def check_gru_kernel(gen: torch.Generator, card: str):
+    """DIEN's sequence kernels at the cell's shape, for gru, agru and
+    augru: each output of ``gru_seq_cuda`` and ``gru_seq_bwd_cuda`` against
+    the plain versions on the same f32 inputs, within 1e-5 of the plain
+    tensor's largest entry (sums in another order: FMAs in k order against
+    the plain matmuls), with both one's errors against the plain versions
+    in f64. Then, for DIEN's two modes, device times by CUDA events, cold
+    L2, in turns: each kernel; the plain versions
+    replayed from a CUDA graph (their arithmetic; no yardstick of speed);
+    a direction through ``AttentionalGRU._recurrence`` (the projection and
+    the kernel; the kernel and the gradient's products), eager and replayed
+    from CUDA graphs as the cell runs it (``utils/graphs.py``); and the
+    loop it replaces, ``_loop``, from CUDA graphs as the parent ran it.
+    Returns the largest error against the plain versions and the times of
+    the augru (DIEN's evolving layer)."""
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    b, t, d, h = GRU_SHAPE
+    worst, timed = 0.0, {}
+    for mode in ("gru", "agru", "augru"):
+        cell, x, lengths, att = gru_inputs(mode, gen)
+        with torch.no_grad():
+            proj, _ = rnn_ops._project(x.detach(), *cell.parameters())
+            ug, uc = cell.gates_kernel[d:].detach(), cell.candidate_kernel[d:].detach()
+            a = None if att is None else att.detach()
+            g_out = torch.randn(b, t, h, generator=gen).cuda()
+            g_h = torch.randn(b, h, generator=gen).cuda()
+            before = gru_kernels.gru_seq_cuda.launches, gru_kernels.gru_seq_bwd_cuda.launches
+            fwd = gru_kernels.gru_seq_cuda(proj, lengths, a, ug, uc, mode, True)
+            bwd = gru_kernels.gru_seq_bwd_cuda(*fwd[2][:2], lengths, a, ug, uc, g_out, g_h, mode)
+            check((gru_kernels.gru_seq_cuda.launches, gru_kernels.gru_seq_bwd_cuda.launches)
+                  == (before[0] + 1, before[1] + 1), "the sequence kernels did not launch")
+            plain_f = gru_kernels.gru_seq_fwd_plain(proj, lengths, a, ug, uc, mode, True)
+            plain_b = gru_kernels.gru_seq_bwd_plain(*plain_f[2][:2], lengths, a, ug, uc, g_out,
+                                                    g_h, mode)
+            f64 = lambda v: None if v is None else v.double()  # noqa: E731
+            exact_f = gru_kernels.gru_seq_fwd_plain(f64(proj), lengths, f64(a), f64(ug), f64(uc),
+                                                    mode, True)
+            exact_b = gru_kernels.gru_seq_bwd_plain(*exact_f[2][:2], lengths, f64(a), f64(ug),
+                                                    f64(uc), f64(g_out), f64(g_h), mode)
+            torch.cuda.synchronize()
+        names = ("outs", "h_final", "gates", "hprev", "rh", "d_pre", "d_att")
+        got = [fwd[0], fwd[1], *fwd[2], *bwd]
+        want = [plain_f[0], plain_f[1], *plain_f[2], *plain_b]
+        exact = [exact_f[0], exact_f[1], *exact_f[2], *exact_b]
+        errors = {}
+        for name, g, w, e in zip(names, got, want, exact):
+            if g is None:
+                continue
+            scale = w.abs().max().item()
+            err = (g - w).abs().max().item()
+            errors[name] = dict(max_abs_err=err, max_abs=scale,
+                                kernel_vs_f64=(g.double() - e).abs().max().item(),
+                                plain_vs_f64=(w.double() - e).abs().max().item())
+            check(err <= 1e-5 * scale, f"gru_seq {mode} {name}: {err} from the plain version, "
+                  f"over 1e-5 of its largest entry {scale}")
+            worst = max(worst, err / max(scale, 1e-30))
+        emit(phase="kernel_vs_plain", kernel="gru_seq", mode=mode, shape=list(GRU_SHAPE),
+             errors=errors, card=card)
+        if mode == "agru":
+            continue
+        kernel = [statistics.median(ts) for ts in times_in_turns(
+            [lambda: gru_kernels.gru_seq_cuda(proj, lengths, a, ug, uc, mode, True),
+             lambda: gru_kernels.gru_seq_bwd_cuda(*fwd[2][:2], lengths, a, ug, uc, g_out, g_h,
+                                                  mode)],
+            lambda fn: device_ms(fn, flush), runs=20)]
+        plain = [captured(lambda: gru_kernels.gru_seq_fwd_plain(proj, lengths, a, ug, uc, mode,
+                                                                True)),
+                 captured(lambda: gru_kernels.gru_seq_bwd_plain(*plain_f[2][:2], lengths, a, ug,
+                                                                uc, g_out, g_h, mode))]
+        plain_ms = [statistics.median(ts) for ts in times_in_turns(
+            plain, lambda fn: device_ms(fn, flush), runs=10)]
+        recur = AttentionalGRU._recurrence
+        paths = {"sequence_eager": lambda c, *args: recur(c, *args),
+                 "sequence_graphed": lambda c, *args: graphs.call(c, recur, *args),
+                 "loop_graphed": lambda c, *args: graphs.call(c, AttentionalGRU._loop, *args)}
+        runs = times_in_turns([lambda fn=fn: fwd_bwd_ms(cell, fn, x, lengths, att, flush)
+                               for fn in paths.values()], lambda fn: fn(), runs=10)
+        medians = {name: [statistics.median(r[i] for r in rs) for i in (0, 1)]
+                   for name, rs in zip(paths, runs)}
+        timed[mode] = dict(
+            fwd_ms=kernel[0], bwd_ms=kernel[1], plain_fwd_ms=plain_ms[0], plain_bwd_ms=plain_ms[1],
+            **{f"{name}_{way}_ms": ms[i] for name, ms in medians.items()
+               for i, way in enumerate(("fwd", "bwd"))},
+            **gru_bounds(lengths, t, h))
+        emit(phase="gru_seq_times", mode=mode, shape=list(GRU_SHAPE), **timed[mode], card=card)
+    return worst, timed
 
 
 def check_gradients(gen: torch.Generator) -> None:
@@ -1142,7 +1320,9 @@ def kernel_launches() -> dict:
     return {"din_attention_fwd": din_kernels.din_attention_cuda.launches,
             "din_attention_generic_fwd": din_kernels.din_attention_cuda.generic_launches,
             "cin_layer_fwd": cin_kernels.cin_layer_cuda_t.launches,
-            "cin_layer_bwd": cin_kernels.cin_layer_bwd_cuda_t.launches}
+            "cin_layer_bwd": cin_kernels.cin_layer_bwd_cuda_t.launches,
+            "gru_seq_fwd": gru_kernels.gru_seq_cuda.launches,
+            "gru_seq_bwd": gru_kernels.gru_seq_bwd_cuda.launches}
 
 
 def zero_launches() -> None:
@@ -1150,6 +1330,8 @@ def zero_launches() -> None:
     din_kernels.din_attention_cuda.generic_launches = 0
     cin_kernels.cin_layer_cuda_t.launches = 0
     cin_kernels.cin_layer_bwd_cuda_t.launches = 0
+    gru_kernels.gru_seq_cuda.launches = 0
+    gru_kernels.gru_seq_bwd_cuda.launches = 0
 
 
 def check_backward_launches(run: str, got: dict, model: str, train_steps: int) -> int:
@@ -1312,7 +1494,7 @@ def serve_c2_shapes(gen: torch.Generator, card: str) -> dict:
         np.testing.assert_allclose(got, want, **TOL)
     emit(phase="serve_c2_launches", launches=launches)
     want = {"din_attention_fwd": 1, "din_attention_generic_fwd": 1, "cin_layer_fwd": 2,
-            "cin_layer_bwd": 0}
+            "cin_layer_bwd": 0, "gru_seq_fwd": 0, "gru_seq_bwd": 0}
     check(launches == want, f"C2 serving launched {launches}, want {want}")
     return launches
 
@@ -1419,16 +1601,36 @@ def serve_against_cpu(model: str, cfg, model_dir: str, requests, atol: float, rt
          p90_ms=float(np.percentile(lat, 90)), card=card)
 
 
-def train_and_serve_zoo(workdir: str, card: str) -> None:
+def dien_launches_want(rows: int) -> dict:
+    """The sequence kernels' launches of a one-epoch DIEN CLI run on
+    ``rows``: two recurrences, each one forward launch in every train step
+    and in the two eval passes (the epoch's and the best model's, whose
+    forwards also give the predictions) and one backward launch in every
+    train step."""
+    train_steps, eval_steps = steps_of(rows)
+    return {"gru_seq_fwd": 2 * (train_steps + 2 * eval_steps), "gru_seq_bwd": 2 * train_steps}
+
+
+def train_and_serve_zoo(workdir: str, card: str) -> dict:
     """Slice 4's path for each model: the CLI, then serving its model_dir on
-    the card against the CPU. No hand-written kernel is on these paths, so
-    each run's kernel launches must be 0."""
+    the card against the CPU. No hand-written kernel is on these paths but
+    DIEN's sequence kernels, so each run's other kernel launches must be 0,
+    and DIEN's run must launch the sequence kernels once a recurrence (two)
+    in each of its forwards and backwards: ``dien_launches_want``. Returns
+    DIEN's run's launches."""
     data = make_synthetic_dataset(WECHAT_SCHEMA, num_rows=max(ZOO_REQUEST_ROWS), seed=SEED + 3)
     requests = {n: {k: v[:n] for k, v in data.items() if k != "labels"}
                 for n in ZOO_REQUEST_ROWS}
     for model in ZOO_MODELS:
         model_dir, history, launches = run_cli(model, ZOO_ROWS, 1, workdir, card)
-        check(not any(launches.values()), f"{model} launched a kernel of another path: {launches}")
+        own = ("gru_seq_fwd", "gru_seq_bwd") if model == "dien" else ()
+        check(not any(n for k, n in launches.items() if k not in own),
+              f"{model} launched a kernel of another path: {launches}")
+        if model == "dien":
+            want = dien_launches_want(ZOO_ROWS)
+            check({k: launches[k] for k in own} == want,
+                  f"dien launched {launches}, want {want} of the sequence kernels")
+            dien_launches = launches
         auc = history[-1]["eval_auc"]
         if model in ZOO_AUC_BAR:
             check(auc > 0.6, f"{model} eval AUC {auc} is not above 0.6")
@@ -1439,6 +1641,7 @@ def train_and_serve_zoo(workdir: str, card: str) -> None:
         if model == "bst":
             serve_against_cpu(model, cfg.replace(**F32_TRANSFORMER), model_dir, requests,
                               1e-5, 1e-5, card)
+    return dien_launches
 
 
 def train_and_serve_multitask(workdir: str, card: str) -> None:
@@ -2436,6 +2639,7 @@ def main(argv=None) -> int:
     din_err, din_c2_err, generic_err = check_din_kernel(gen)
     cin_err = check_cin_kernel(gen)
     cin_bwd_err, cin_bwd_timed = check_cin_backward(gen, card, mma_sync_tflops)
+    gru_err, gru_timed = check_gru_kernel(gen, card)
     check_bf16_inputs(gen)
     check_gradients(gen)
     if args.kernels_only:
@@ -2449,7 +2653,7 @@ def main(argv=None) -> int:
             xdeepfm_dir, cin_launches, cin_bwd_launches = train_xdeepfm(workdir, card)
             din_launches = train_din(workdir, card)
             serve_xdeepfm(xdeepfm_dir)
-            train_and_serve_zoo(workdir, card)
+            dien_launches = train_and_serve_zoo(workdir, card)
             train_and_serve_multitask(workdir, card)
             file_launches, file_b1 = train_from_files(workdir, card)
             wide_launches = din_wide_phase(card)
@@ -2518,6 +2722,22 @@ def main(argv=None) -> int:
             "c2_max_abs_err": din_c2_err.get(name, cin_err if name == "cin_layer_fwd" else None),
             "c2_shapes": c2,
         })
+    # DIEN's sequence kernels, timed at the cell's shape in augru mode (the
+    # evolving layer; the extractor's gru reads alike in its
+    # gru_seq_times line); they replace no Pallas kernel (the JAX package
+    # runs a lax.scan); max_abs_err: the largest error against the plain
+    # version as a share of the plain tensor's largest entry
+    gru = gru_timed["augru"]
+    for name, way in (("gru_seq_fwd", "fwd"), ("gru_seq_bwd", "bwd")):
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "rank_tpu_torch/ops/kernels/csrc/gru_sequence.cu",
+            "replaces": None, "launches": dien_launches[name], "max_abs_err": gru_err,
+            "ms": gru[f"{way}_ms"], "plain_ms": gru[f"plain_{way}_ms"],
+            "bound_ms": gru[f"{way}_bound_ms"], "bound_by": gru[f"{way}_bound_by"],
+            "bound_tc_ms": None, "library_ms": None, "c2_max_abs_err": None, "c2_shapes": [],
+            "loop_graphed_ms": gru[f"loop_graphed_{way}_ms"],
+            "sequence_graphed_ms": gru[f"sequence_graphed_{way}_ms"]})
     emit(kernels=rows)
     print(card, flush=True)
     emit(ok=True, device={"platform": "gpu", "kind": torch.cuda.get_device_name(0),

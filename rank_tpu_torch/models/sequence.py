@@ -139,12 +139,14 @@ class DIEN(RankModel):
     (flax's default Dense init, whatever ``dense_init`` says, as in the JAX
     model).
 
-    With ``cuda_graphs`` a training forward on the card runs in five stages,
-    each replayed with its backward from CUDA graphs (``utils/graphs.py``):
-    the lookups, the GRU, the attention, the AUGRU (the two inside their
-    ``rnn.*`` spans) and, without dropout, the tower. The plain forward
-    and its backward dispatch about 5,700 kernels a step at batch 1024 and
-    T = 50."""
+    On the card both recurrences run as sequence kernels, one launch a
+    direction for all T steps (``ops/rnn.py``, ``gru_sequence``), where
+    their loops dispatched about 5,300 of the step's 5,700 kernels at batch
+    1024 and T = 50. With ``cuda_graphs`` a training forward on the card
+    runs in five stages, each replayed with its backward from CUDA graphs
+    (``utils/graphs.py``): the lookups, the GRU, the attention, the AUGRU
+    (the two inside their ``rnn.*`` spans) and, without dropout, the
+    tower."""
 
     def __init__(self, schema: FeatureSchema, cfg: ModelConfig,
                  generator: Optional[torch.Generator] = None):

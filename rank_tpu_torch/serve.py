@@ -153,8 +153,9 @@ def export_serving_artifact(predictor: Predictor, path: str, batch_size: int = 2
     (bf16 ones included) are saved in the program, the batch shape is
     fixed at ``batch_size`` and ``labels`` are an input fed zeros. The
     program is traced on the predictor's device and holds the kernels as
-    the registered operators ``rank_tpu_torch::din_attention`` and
-    ``rank_tpu_torch::cin_layer_t``.
+    the registered operators ``rank_tpu_torch::din_attention``,
+    ``rank_tpu_torch::cin_layer_t`` and, traced on the card, DIEN's
+    ``rank_tpu_torch::gru_seq_fwd``.
     """
     from .data.synthetic import make_synthetic_dataset
 

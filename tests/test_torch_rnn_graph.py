@@ -94,15 +94,15 @@ def test_the_graphs_compute_what_the_loop_computes(mode, card):
     for _ in range(2):  # the capture's call, then a replay
         got = _run(cell, x, lengths, att)
         assert all(torch.equal(g, w) for g, w in zip(got, want))
-    assert len(graphs._GRAPHS[cell][AttentionalGRU._loop][1]) == 1
+    assert len(graphs._GRAPHS[cell][AttentionalGRU._recurrence][1]) == 1
     half = [None if a is None else a[:B // 2].detach().requires_grad_(a.requires_grad)
             for a in (x, lengths, att)]
     _run(cell, *half)
-    assert len(graphs._GRAPHS[cell][AttentionalGRU._loop][1]) == 2  # a new shape, a new capture
+    assert len(graphs._GRAPHS[cell][AttentionalGRU._recurrence][1]) == 2  # a new shape, a new capture
     cell.eval()
     with torch.no_grad():
         outs, _ = cell(x, lengths, att)
-    assert torch.equal(outs, want[0]) and len(graphs._GRAPHS[cell][AttentionalGRU._loop][1]) == 2
+    assert torch.equal(outs, want[0]) and len(graphs._GRAPHS[cell][AttentionalGRU._recurrence][1]) == 2
 
 
 @pytest.mark.card
