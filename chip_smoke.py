@@ -627,9 +627,8 @@ def mma_sync_ceiling(card: str) -> float:
     """TFLOP/s of mma.sync m16n8k8 in TF32 on this card
     (``csrc/mma_ceiling.cu``): 4 blocks of 8 warps on each SM, each warp 8
     independent products a round; the fastest of 5 timed runs."""
-    lib = _build.load("mma_ceiling")
-    lib.mma_tf32_ceiling.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    lib.mma_tf32_ceiling.restype = ctypes.c_int
+    lib = _build.load("mma_ceiling", {
+        "mma_tf32_ceiling": [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p]})
     blocks, iters = 4 * torch.cuda.get_device_properties(0).multi_processor_count, 4096
     out = torch.empty(blocks * 256, device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
@@ -955,8 +954,8 @@ def check_gru_kernel(gen: torch.Generator, card: str):
 
 
 def check_gradients(gen: torch.Generator) -> None:
-    """Each kernel's autograd Function, and its registered operator (the
-    training path's), against autograd through the plain version at
+    """Each kernel's registered operator (the training path's, the one
+    gradient route) against autograd through the plain version at
     B = 1024: outputs within the kernel tolerance, gradients too. B1's
     backward recomputes through its plain version; B2's runs its backward
     kernels, which must launch once, and whose dw sums B*D products an
@@ -969,35 +968,27 @@ def check_gradients(gen: torch.Generator) -> None:
     wg = torch.randn(1024, DIN_WIDE_D, generator=gen).cuda()
     cases = {
         "din_attention_generic_fwd/operator": (
-            lambda q, k, *p: din_kernels.din_attention_cuda_fn(q, k, wlengths, p, True),
+            lambda q, k, *p: din_kernels.din_attention(q, k, wlengths, p, True),
             lambda q, k, *p: din_kernels.din_attention_plain(q, k, wlengths, p, True),
             (wq, wk, *wparams), wg),
-        "din_attention_fwd": (
-            lambda q, k, *p: din_kernels.DINAttentionFn.apply(
-                din_kernels.din_attention_cuda, True, q, k, lengths, *p),
-            plain, (q, k, *params), g),
         "din_attention_fwd/operator": (
-            lambda q, k, *p: din_kernels.din_attention_cuda_fn(q, k, lengths, p, True),
+            lambda q, k, *p: din_kernels.din_attention(q, k, lengths, p, True),
             plain, (q, k, *params), g),
     }
     for layer in (0, 1):
         xk_t, x0_t, w = cin_inputs(1024, layer, gen)
         inputs = (xk_t, x0_t, w) if layer else (x0_t.clone(), x0_t, w)
         g = torch.randn(1024, 16, 128, generator=gen).cuda()
-        cases[f"cin_layer_fwd/layer{layer}"] = (
-            lambda *x: cin_kernels.CINLayerFn.apply(cin_kernels.cin_layer_cuda_t, *x),
-            cin_kernels.cin_layer_plain_t, inputs, g)
         cases[f"cin_layer_fwd/layer{layer}/operator"] = (
-            cin_kernels.cin_layer_cuda_fn_t, cin_kernels.cin_layer_plain_t, inputs, g)
+            cin_kernels.cin_layer_t, cin_kernels.cin_layer_plain_t, inputs, g)
     for name, (kernel_fn, plain_fn, inputs, g) in cases.items():
-        cin = name.startswith("cin_layer_fwd")
+        kernel = name.split("/")[0]
+        cin = kernel == "cin_layer_fwd"
         before = kernel_launches()
-        bwd_before = cin_kernels.cin_layer_bwd_cuda_t.launches
         got, got_grads = grads_of(kernel_fn, inputs, g)
-        if name.startswith("din_attention_generic_fwd"):
-            check(kernel_launches()["din_attention_generic_fwd"]
-                  == before["din_attention_generic_fwd"] + 1, f"{name} did not launch")
-        bwd = cin_kernels.cin_layer_bwd_cuda_t.launches - bwd_before
+        after = kernel_launches()
+        check(after[kernel] == before[kernel] + 1, f"{name} did not launch {kernel} once")
+        bwd = after["cin_layer_bwd"] - before["cin_layer_bwd"]
         check(bwd == cin, f"{name}: cin_layer_bwd launched {bwd} times, want {int(cin)}")
         want, want_grads = grads_of(plain_fn, inputs, g)
         torch.testing.assert_close(got, want, **TOL)
@@ -2491,38 +2482,31 @@ def time_kernels(gen: torch.Generator, card: str, mma_sync_tflops: float):
 
 
 def host_overhead(gen: torch.Generator, card: str) -> None:
-    """Host time that slice 6 put on every call, at DIN's 1-row bucket
-    (B = 256), f32: B1's registered operator, the promoting ``Linear`` (in
-    inference mode, and with autograd recording as in a train step) and
-    BatchNorm's eval path, each against the route the port took before
-    slice 6 (``DINAttentionFn`` around the CUDA wrapper, ``nn.Linear``,
-    ``nn.BatchNorm1d``) and against the bare call (the wrapper,
-    ``F.linear``, ``F.batch_norm``). Each is the host clock of enqueueing
-    100 calls, no sync inside (so a short kernel's device time is not
-    counted), median of 10 runs in turns. Forward hooks count the calls
-    of each in one 1-row DIN request and one MMOE train forward
-    (B = 1024); with the differences to the earlier routes they give the
-    host time each path gained."""
+    """Host time the port's wrappers put on every call, at DIN's 1-row
+    bucket (B = 256), f32: B1's registered operator, the promoting
+    ``Linear`` (in inference mode, and with autograd recording as in a
+    train step) and BatchNorm's eval path, each against the bare call (the
+    CUDA wrapper, ``F.linear``, ``F.batch_norm``). Each is the host clock
+    of enqueueing 100 calls, no sync inside (so a short kernel's device
+    time is not counted), median of 10 runs in turns. Forward hooks count
+    the calls of each in one 1-row DIN request and one MMOE train forward
+    (B = 1024); with the differences to the bare calls they give the host
+    time each path adds."""
     from rank_tpu_torch.ops.activations import BatchNorm
     from rank_tpu_torch.ops.mlp import Linear
 
     q, k, lengths, params = din_inputs(256, gen)
     x = torch.randn(256, 512, generator=gen).cuda()
     linear = Linear(512, 256).cuda()
-    parent_linear = torch.nn.Linear(512, 256).cuda()
     norm = BatchNorm(512).cuda().eval()
-    parent_norm = torch.nn.BatchNorm1d(512).cuda().eval()
     f = torch.nn.functional
-    # (the call slice 6 makes, the one made before it, the bare one)
+    # (the port's call, the bare one)
     routes = {
         "din_attention": (
             lambda: din_kernels.din_attention(q, k, lengths, params, True),
-            lambda: din_kernels.DINAttentionFn.apply(din_kernels.din_attention_cuda, True,
-                                                     q, k, lengths, *params),
             lambda: din_kernels.din_attention_cuda(q, k, lengths, params, True)),
-        "linear": (lambda: linear(x), lambda: parent_linear(x),
-                   lambda: f.linear(x, linear.weight, linear.bias)),
-        "batch_norm": (lambda: norm(x), lambda: parent_norm(x),
+        "linear": (lambda: linear(x), lambda: f.linear(x, linear.weight, linear.bias)),
+        "batch_norm": (lambda: norm(x),
                        lambda: f.batch_norm(x, norm.running_mean, norm.running_var, norm.weight,
                                             norm.bias, False, 0.0, norm.eps)),
     }
@@ -2573,15 +2557,14 @@ def host_overhead(gen: torch.Generator, card: str) -> None:
              for key, v in make_synthetic_dataset(WECHAT_SCHEMA, num_rows=1024, seed=SEED).items()}
     mmoe_calls = calls_of(mmoe.train(), lambda: mmoe(batch))
     mmoe_calls["linear_train"] = mmoe_calls.pop("linear")
-    for kind, (ours, parent, bare) in per_call.items():
-        emit(phase="host_overhead", call=kind, us=ours, parent_route_us=parent, bare_us=bare,
+    for kind, (ours, bare) in per_call.items():
+        emit(phase="host_overhead", call=kind, us=ours, bare_us=bare,
              calls_per_din_request=din_calls.get(kind, 0),
              calls_per_mmoe_train_forward=mmoe_calls.get(kind, 0), card=card)
     for name, calls in (("din_request_1_row", din_calls), ("mmoe_train_forward", mmoe_calls)):
-        added = {base: sum(n * (per_call[kind][0] - per_call[kind][i])
-                           for kind, n in calls.items() if kind in per_call)
-                 for i, base in ((1, "vs_parent_route_us"), (2, "vs_bare_us"))}
-        emit(phase="host_overhead_added", path=name, **added, card=card)
+        added = sum(n * (per_call[kind][0] - per_call[kind][1])
+                    for kind, n in calls.items() if kind in per_call)
+        emit(phase="host_overhead_added", path=name, vs_bare_us=added, card=card)
 
 
 def profile_train_step(model: str, card: str, steps: int = 10, **overrides) -> None:

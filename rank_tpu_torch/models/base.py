@@ -2,12 +2,12 @@
 (port of ``rank_tpu/models/base.py``).
 
 ``ModelConfig`` is the JAX package's, field for field and default for
-default, so one config names the same model on both sides, and adds one
-field of its own, ``cuda_graphs``, which changes how the port dispatches
-DIEN's training step and no number. Fields of
-models not ported yet are carried and ignored; so are ``attn_impl`` (three
-TPU formulations of one function, which the port computes once) and
-``gru_unroll`` (a ``lax.scan`` unroll factor).
+default, so one config names the same model on both sides. Every model is
+ported; two fields are carried and ignored: ``attn_impl`` (three TPU
+formulations of one function, which the port computes once) and
+``gru_unroll`` (a ``lax.scan`` unroll factor). The port adds one field of
+its own, ``cuda_graphs``, which changes how it dispatches DIEN's training
+step and no number.
 """
 
 from __future__ import annotations

@@ -111,11 +111,10 @@ class DINAttention(nn.Module):
     ) -> torch.Tensor:
         from .kernels import din_attention as kernels
 
-        fn = {
-            "auto": kernels.din_attention,
-            "pallas": kernels.din_attention_cuda_fn,
-            "jnp": kernels.din_attention_plain,
-        }[self.backend]
+        if self.backend == "pallas" and keys.device.type != "cuda":
+            raise ValueError(f"the DIN attention kernel needs a CUDA device; keys are on "
+                             f"{keys.device}")
+        fn = kernels.din_attention_plain if self.backend == "jnp" else kernels.din_attention
         params = (self.w1, self.b1, self.w2, self.b2, self.w3, self.b3)
         return fn(query, keys, lengths, params, self.use_softmax)
 

@@ -64,11 +64,9 @@ class CIN(nn.Module):
 
     def forward(self, x0: torch.Tensor) -> torch.Tensor:
         """x0: (B, F, D) field embeddings -> (B, sum of pooled map counts)."""
-        layer = {
-            "auto": kernels.cin_layer_t,
-            "pallas": kernels.cin_layer_cuda_fn_t,
-            "jnp": kernels.cin_layer_plain_t,
-        }[self.backend]
+        if self.backend == "pallas" and x0.device.type != "cuda":
+            raise ValueError(f"the CIN kernel needs a CUDA device; x0 is on {x0.device}")
+        layer = kernels.cin_layer_plain_t if self.backend == "jnp" else kernels.cin_layer_t
         x0_t = x0.transpose(1, 2).contiguous()  # (B, D, F)
         xk_t = x0_t
         pooled = []

@@ -33,16 +33,13 @@ H100 and how its design answers that.
     CUDA tensors it casts the inputs to f32, launches ``cin_layer_cuda_t``
     and returns the result in the inputs' promoted dtype; on CPU tensors
     it is the plain version. Its fake implementation lets ``torch.export``
-    trace it as one node, and its gradient is ``cin_layer_vjp``.
-  * ``CINLayerFn``: the same gradient as a ``torch.autograd.Function``
-    around any forward implementation (a CPU test runs it with the plain
-    forward, ``chip_smoke.py`` with ``cin_layer_cuda_t``).
+    trace it as one node, and its gradient is ``cin_layer_vjp``: the one
+    gradient route, which the models and the card checks take alike.
   * a FLOP formula for the operator (``register_flop_formula``), so that
     ``FlopCounterMode`` counts its 2 B D H F O product FLOPs, as many as
     it counts for the plain version; without it the operator counts 0.
-  * ``cin_layer_t``: the operator, on either device (``backend='auto'``);
-    ``cin_layer_cuda_fn_t`` the same, raising on CPU tensors
-    (``backend='pallas'``).
+  * ``cin_layer_t``: the operator, on either device (``backend='auto'``,
+    and ``'pallas'``, whose module refuses CPU tensors).
 """
 
 from __future__ import annotations
@@ -56,25 +53,16 @@ from . import _build
 from ..mlp import cast_contiguous, einsum, promoted_dtype
 from ...utils import tracing
 
-_lib = None
+SIGNATURES = {
+    "cin_layer_fwd": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    "cin_layer_bwd_splits": [ctypes.c_int] * 5,
+    "cin_layer_bwd": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+}
 
 
 def library() -> ctypes.CDLL:
-    """Build (at first use) and load the kernel's shared library."""
-    global _lib
-    if _lib is None:
-        lib = _build.load("cin")
-        lib.cin_layer_fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        lib.cin_layer_fwd.restype = ctypes.c_int
-        lib.cin_layer_bwd_splits.argtypes = [ctypes.c_int] * 5
-        lib.cin_layer_bwd_splits.restype = ctypes.c_int
-        lib.cin_layer_bwd.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
-                                      + [ctypes.c_void_p])
-        lib.cin_layer_bwd.restype = ctypes.c_int
-        lib.cin_layer_error_string.argtypes = [ctypes.c_int]
-        lib.cin_layer_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+    """Build (at first use) and load the kernels' shared library."""
+    return _build.load("cin", SIGNATURES)
 
 
 def cin_layer_plain_t(xk_t: torch.Tensor, x0_t: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -141,46 +129,19 @@ def check_shapes(xk_t: torch.Tensor, x0_t: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"{who}: H={h}, F={f}, O={o}; each must be at least 1")
 
 
-def check_on_card(who: str, named: dict) -> None:
-    """Raise unless every tensor of ``named`` is a contiguous f32 CUDA tensor
-    on the first one's (``xk_t``'s) device."""
-    for name, x in named.items():
-        if x.dtype != torch.float32:
-            raise TypeError(f"{who}: {name} is {x.dtype}, needs torch.float32")
-        if not x.is_contiguous():
-            raise ValueError(f"{who}: {name} is not contiguous")
-    first = next(iter(named.values()))
-    for name, x in named.items():
-        if x.device.type != "cuda" or x.device != first.device:
-            raise ValueError(
-                f"{who} needs every input on one CUDA device; "
-                f"{name} is on {x.device}, xk_t on {first.device}"
-            )
-
-
 def cin_layer_cuda_t(xk_t: torch.Tensor, x0_t: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA kernel; raises unless every input is a contiguous f32
     CUDA tensor on one device with shapes the kernel takes."""
     check_shapes(xk_t, x0_t, w)
-    check_on_card("cin_layer_cuda_t", {"xk_t": xk_t, "x0_t": x0_t, "w": w})
+    _build.check_operands("cin_layer_cuda_t", {"xk_t": xk_t, "x0_t": x0_t, "w": w})
     b, d, h = xk_t.shape
     f = x0_t.shape[2]
     o = w.shape[0]
     out = torch.empty((b, d, o), dtype=torch.float32, device=xk_t.device)
     if b * d == 0:
         return out
-    wop = weight_operand(w)
-    lib = library()
-    stream = torch.cuda.current_stream(xk_t.device).cuda_stream
-    err = lib.cin_layer_fwd(
-        xk_t.data_ptr(), x0_t.data_ptr(), wop.data_ptr(), out.data_ptr(),
-        b * d, h, f, o, xk_t.device.index, stream,
-    )
-    if err != 0:
-        raise RuntimeError(
-            f"cin_layer_fwd launch failed: {lib.cin_layer_error_string(err).decode()} "
-            f"(B={b}, D={d}, H={h}, F={f}, O={o})"
-        )
+    _build.launch(library(), "cin_layer_fwd", xk_t.device, (xk_t, x0_t, weight_operand(w), out),
+                  (b * d, h, f, o), B=b, D=d, H=h, F=f, O=o)
     cin_layer_cuda_t.launches += 1
     return out
 
@@ -199,30 +160,19 @@ def cin_layer_bwd_cuda_t(xk_t: torch.Tensor, x0_t: torch.Tensor, w: torch.Tensor
     f, o = x0_t.shape[2], w.shape[0]
     if tuple(grad_out.shape) != (b, d, o):
         raise ValueError(f"{who}: grad_out has shape {tuple(grad_out.shape)}, needs {(b, d, o)}")
-    check_on_card(who, {"xk_t": xk_t, "x0_t": x0_t, "w": w, "grad_out": grad_out})
+    _build.check_operands(who, {"xk_t": xk_t, "x0_t": x0_t, "w": w, "grad_out": grad_out})
     dxk, dx0 = torch.empty_like(xk_t), torch.empty_like(x0_t)
     if b * d == 0:
         return dxk, dx0, torch.zeros_like(w)
     dw = torch.empty_like(w)
     wb = weight_operand_bwd(w)
     lib = library()
-    device = xk_t.device.index
-    splits = lib.cin_layer_bwd_splits(b * d, h, f, o, device)
+    splits = lib.cin_layer_bwd_splits(b * d, h, f, o, xk_t.device.index)
     if splits < 1:
-        raise RuntimeError(
-            f"cin_layer_bwd_splits failed: {lib.cin_layer_error_string(-splits).decode()}")
+        raise RuntimeError(f"cin_layer_bwd_splits failed: {_build.error_string(lib, -splits)}")
     part = torch.empty((splits, o, h, f), dtype=torch.float32, device=xk_t.device)
-    stream = torch.cuda.current_stream(xk_t.device).cuda_stream
-    err = lib.cin_layer_bwd(
-        grad_out.data_ptr(), xk_t.data_ptr(), x0_t.data_ptr(), wb.data_ptr(), dxk.data_ptr(),
-        dx0.data_ptr(), dw.data_ptr(), part.data_ptr(), splits, wb.shape[-1], b * d, h, f, o,
-        device, stream,
-    )
-    if err != 0:
-        raise RuntimeError(
-            f"cin_layer_bwd launch failed: {lib.cin_layer_error_string(err).decode()} "
-            f"(B={b}, D={d}, H={h}, F={f}, O={o})"
-        )
+    _build.launch(lib, "cin_layer_bwd", xk_t.device, (grad_out, xk_t, x0_t, wb, dxk, dx0, dw, part),
+                  (splits, wb.shape[-1], b * d, h, f, o), B=b, D=d, H=h, F=f, O=o)
     cin_layer_bwd_cuda_t.launches += 1
     return dxk, dx0, dw
 
@@ -249,21 +199,6 @@ def cin_layer_vjp(xk_t, x0_t, w, grad_out):
         grads = cin_layer_bwd_cuda_t(*(cast_contiguous(x, torch.float32)
                                        for x in (*inputs, grad_out)))
         return tuple(cast_contiguous(gr, x.dtype) for gr, x in zip(grads, inputs))
-
-
-class CINLayerFn(torch.autograd.Function):
-    """``forward_fn`` in the forward pass; the backward pass is
-    ``cin_layer_vjp``. Taking ``forward_fn`` as an argument lets a CPU
-    test run this backward with the plain forward."""
-
-    @staticmethod
-    def forward(ctx, forward_fn, xk_t, x0_t, w):
-        ctx.save_for_backward(xk_t, x0_t, w)
-        return forward_fn(xk_t, x0_t, w)
-
-    @staticmethod
-    def backward(ctx, grad_out):
-        return (None, *cin_layer_vjp(*ctx.saved_tensors, grad_out))
 
 
 # -- the registered operator --------------------------------------------------------
@@ -311,11 +246,3 @@ def cin_layer_t(xk_t: torch.Tensor, x0_t: torch.Tensor, w: torch.Tensor) -> torc
     """The registered operator: the kernel for CUDA tensors, the plain
     version for CPU tensors, with its gradient on both."""
     return cin_layer_op(xk_t, x0_t, w)
-
-
-def cin_layer_cuda_fn_t(xk_t: torch.Tensor, x0_t: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """The operator, for CUDA tensors only: raises on CPU tensors rather
-    than running the plain version in the kernel's place."""
-    if xk_t.device.type != "cuda":
-        raise ValueError(f"the CIN kernel needs a CUDA device; xk_t is on {xk_t.device}")
-    return cin_layer_t(xk_t, x0_t, w)

@@ -79,14 +79,13 @@
 //   * B's hi and lo parts are split as each fragment is loaded, A's as it
 //     is formed, with integer rounding (split_tf32), not cvt; the ragged
 //     edges of M and N are masked on the store.
-// Left out: the split_half halves and the D-sum pool (outside, so that
-// CINLayerFn's backward is unchanged), the JAX dispatch threshold and
-// VMEM budget (TPU policy), and wgmma/TMA (a later change).
-
-#include <cuda_runtime.h>
-#include <stdint.h>
+// Left out: the split_half halves and the D-sum pool (outside, in the CIN
+// module, so that one layer's gradient is the operator's), the JAX dispatch
+// threshold and VMEM budget (TPU policy), and wgmma/TMA (a later change).
 
 #include <algorithm>
+
+#include "common.cuh"
 
 namespace {
 
@@ -97,26 +96,6 @@ constexpr int kThreads = 256;
 constexpr int kSB = kTN + 8;  // B stage row stride: conflict-free b fragments
 constexpr int kHC = 64;       // xk columns (of padded H) a panel stages
 constexpr int kFC = 16;       // x0 columns a panel stages
-
-// x = hi + lo. hi is x rounded to TF32 as cvt.rna.tf32.f32 rounds it (to
-// nearest, ties away from zero), in two integer operations: add half a TF32
-// unit to the magnitude, clear the 13 bits TF32 drops. lo = x - hi is exact
-// in f32 (Sterbenz) and is passed as it is: the tensor core reads the top
-// 19 bits of a TF32 operand, so lo keeps 2^-10 of itself and x is kept to
-// 2^-21 of itself.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-// d += a (16x8, row) * b (8x8, col); TF32 inputs, f32 accumulators.
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // 16-byte (or 4-byte) global -> shared copy; zero-fills when !valid.
 __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
@@ -354,22 +333,17 @@ cin_layer_fwd_kernel(const float* __restrict__ xk, const float* __restrict__ x0,
 
 template <int MT>
 cudaError_t launch(const float* xk, const float* x0, const float* wop, float* out,
-                   int M, int H, int F, int O, int Hp, int Op, cudaStream_t stream) {
+                   int M, int H, int F, int O, int Hp, int Op, int device, cudaStream_t stream) {
   constexpr int kTM = 32 * MT;
   const size_t smem = sizeof(float) *
       ((size_t)kStages * kKC * kSB + (size_t)kTM * (std::min(Hp, kHC) + 4) +
        (size_t)kTM * (std::min(F, kFC) | 1));
   const bool panels = Hp > kHC || F > kFC;
   auto kernel = panels ? cin_layer_fwd_kernel<MT, true> : cin_layer_fwd_kernel<MT, false>;
-  // Above 48 KB a block must opt in; above the card's limit this fails and
-  // the launch is refused with the error returned here.
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
   const int vec_xk = (H % 4 == 0) && (((uintptr_t)xk & 15) == 0);
   const dim3 grid((M + kTM - 1) / kTM, (Op + kTN - 1) / kTN);
-  kernel<<<grid, kThreads, smem, stream>>>(xk, x0, wop, out, M, H, F, O, Hp, Op, vec_xk);
-  return cudaGetLastError();
+  return launch_kernel(kernel, grid, kThreads, smem, device, stream, xk, x0, wop, out, M, H, F, O,
+                       Hp, Op, vec_xk);
 }
 
 
@@ -870,36 +844,28 @@ int dw_rows_per_split(int M, const DwTiling& t, int sms) {
 template <int HS>
 cudaError_t launch_dz(const float* g, const float* xk, const float* x0, const float* wb,
                       float* dxk, float* dx0, int M, int H, int F, int O, int Op8, int nhc,
-                      cudaStream_t stream) {
+                      int device, cudaStream_t stream) {
   const size_t smem = sizeof(float) * ((size_t)kBwdTM * (std::min(Op8, kOC) + 4) +
                                        (size_t)kDzStages * kDzKC * kSW);
   auto kernel = Op8 > kOC ? cin_layer_bwd_dz_kernel<HS, true> : cin_layer_bwd_dz_kernel<HS, false>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
   const int vec_g = (O % 4 == 0) && (((uintptr_t)g & 15) == 0);
-  kernel<<<(M + kBwdTM - 1) / kBwdTM, kBwdTM / (16 * kDzMT) * 32, smem, stream>>>(
-      g, xk, x0, wb, dxk, dx0, M, H, F, O, Op8, nhc, vec_g);
-  return cudaGetLastError();
+  return launch_kernel(kernel, (M + kBwdTM - 1) / kBwdTM, kBwdTM / (16 * kDzMT) * 32, smem, device,
+                       stream, g, xk, x0, wb, dxk, dx0, M, H, F, O, Op8, nhc, vec_g);
 }
 
 template <int MT>
 cudaError_t launch_dw(const float* g, const float* xk, const float* x0, float* part,
                       int M, int H, int F, int O, const DwTiling& t, int rows_per_split,
-                      int splits, cudaStream_t stream) {
+                      int splits, int device, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * kDwStages * kDwKC * ((size_t)kSG + (t.hsw | 8) + (t.fwd | 1));
   auto kernel = t.hsw % (16 * MT) == 0 ? cin_layer_bwd_dw_kernel<MT, true>
                                        : cin_layer_bwd_dw_kernel<MT, false>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
   const int vec_g = (O % 4 == 0) && (((uintptr_t)g & 15) == 0);
   const int vec_xk = (H % 4 == 0) && (((uintptr_t)xk & 15) == 0);
   const dim3 grid(t.tiles / ((O + kTN - 1) / kTN), (O + kTN - 1) / kTN, splits);
-  kernel<<<grid, kThreads, smem, stream>>>(g, xk, x0, part, M, H, F, O, t.hsw, t.fwd,
-                                           rows_per_split, vec_g, vec_xk);
-  return cudaGetLastError();
+  return launch_kernel(kernel, grid, kThreads, smem, device, stream, g, xk, x0, part, M, H, F, O,
+                       t.hsw, t.fwd, rows_per_split, vec_g, vec_xk);
 }
 
 }  // namespace
@@ -914,34 +880,25 @@ extern "C" int cin_layer_fwd(const float* xk, const float* x0, const float* wop,
   if (M < 1 || H < 1 || F < 1 || O < 1) return (int)cudaErrorInvalidValue;
   if (((uintptr_t)wop & 15) != 0) return (int)cudaErrorMisalignedAddress;
   const int Hp = (H + 7) / 8 * 8, Op = (O + 3) / 4 * 4;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  int sms = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  DeviceLimits lim;
+  const cudaError_t err = use_device(device, lim);
   if (err != cudaSuccess) return (int)err;
   // The tallest block tile that still gives every SM a block: small M (a
   // small batch) takes shorter tiles rather than leaving SMs idle.
   const long n_tiles = (Op + kTN - 1) / kTN;
-  auto s = static_cast<cudaStream_t>(stream);
-  if ((M + 127) / 128 * n_tiles >= sms)
-    return (int)launch<4>(xk, x0, wop, out, M, H, F, O, Hp, Op, s);
-  if ((M + 63) / 64 * n_tiles >= sms)
-    return (int)launch<2>(xk, x0, wop, out, M, H, F, O, Hp, Op, s);
-  return (int)launch<1>(xk, x0, wop, out, M, H, F, O, Hp, Op, s);
-}
-
-extern "C" const char* cin_layer_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  auto run = (M + 127) / 128 * n_tiles >= lim.sms ? launch<4>
+             : (M + 63) / 64 * n_tiles >= lim.sms ? launch<2> : launch<1>;
+  return (int)run(xk, x0, wop, out, M, H, F, O, Hp, Op, device, static_cast<cudaStream_t>(stream));
 }
 
 // The number of partial sums of dw that cin_layer_bwd takes room for: its
 // workspace is (splits, O, H, F) f32. A negative cudaError_t on failure.
 extern "C" int cin_layer_bwd_splits(int M, int H, int F, int O, int device) {
   if (M < 1 || H < 1 || F < 1 || O < 1) return -(int)cudaErrorInvalidValue;
-  int sms = 0;
-  const cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  DeviceLimits lim;
+  const cudaError_t err = use_device(device, lim);
   if (err != cudaSuccess) return -(int)err;
-  const int rows = dw_rows_per_split(M, dw_tiling(H, F, O), sms);
+  const int rows = dw_rows_per_split(M, dw_tiling(H, F, O), lim.sms);
   return (M + rows - 1) / rows;
 }
 
@@ -958,31 +915,23 @@ extern "C" int cin_layer_bwd(const float* g, const float* xk, const float* x0, c
   if (M < 1 || H < 1 || F < 1 || O < 1) return (int)cudaErrorInvalidValue;
   if (hsw != bwd_h_chunk(H)) return (int)cudaErrorInvalidValue;
   if (((uintptr_t)wb & 15) != 0) return (int)cudaErrorMisalignedAddress;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  int sms = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  DeviceLimits lim;
+  cudaError_t err = use_device(device, lim);
   if (err != cudaSuccess) return (int)err;
   const DwTiling t = dw_tiling(H, F, O);
-  const int rows = dw_rows_per_split(M, t, sms);
+  const int rows = dw_rows_per_split(M, t, lim.sms);
   if ((M + rows - 1) / rows != splits) return (int)cudaErrorInvalidValue;
   const int Op8 = (O + 7) / 8 * 8;
   auto s = static_cast<cudaStream_t>(stream);
-  switch (t.hsw) {
-    case 8: err = launch_dz<1>(g, xk, x0, wb, dxk, dx0, M, H, F, O, Op8, t.nhc, s); break;
-    case 16: err = launch_dz<2>(g, xk, x0, wb, dxk, dx0, M, H, F, O, Op8, t.nhc, s); break;
-    case 32: err = launch_dz<4>(g, xk, x0, wb, dxk, dx0, M, H, F, O, Op8, t.nhc, s); break;
-    default: err = launch_dz<8>(g, xk, x0, wb, dxk, dx0, M, H, F, O, Op8, t.nhc, s); break;
-  }
+  auto dz = t.hsw == 8 ? launch_dz<1> : t.hsw == 16 ? launch_dz<2>
+             : t.hsw == 32 ? launch_dz<4> : launch_dz<8>;
+  err = dz(g, xk, x0, wb, dxk, dx0, M, H, F, O, Op8, t.nhc, device, s);
   if (err != cudaSuccess) return (int)err;
-  switch (t.mt) {
-    case 1: err = launch_dw<1>(g, xk, x0, part, M, H, F, O, t, rows, splits, s); break;
-    case 2: err = launch_dw<2>(g, xk, x0, part, M, H, F, O, t, rows, splits, s); break;
-    default: err = launch_dw<4>(g, xk, x0, part, M, H, F, O, t, rows, splits, s); break;
-  }
+  auto dw_partial = t.mt == 1 ? launch_dw<1> : t.mt == 2 ? launch_dw<2> : launch_dw<4>;
+  err = dw_partial(g, xk, x0, part, M, H, F, O, t, rows, splits, device, s);
   if (err != cudaSuccess) return (int)err;
   const size_t n = (size_t)O * H * F;
-  const int blocks = (int)std::min<size_t>((n + 255) / 256, (size_t)sms * 8);
+  const int blocks = (int)std::min<size_t>((n + 255) / 256, (size_t)lim.sms * 8);
   cin_layer_bwd_dw_reduce<<<blocks, 256, 0, s>>>(part, dw, splits, n);
   return (int)cudaGetLastError();
 }

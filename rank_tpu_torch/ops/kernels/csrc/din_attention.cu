@@ -83,11 +83,10 @@
 // The TPU kernel's T->multiple-of-8 and B->128 padding are TPU tiling and
 // are not carried over: T and B are runtime arguments.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
-
 #include <algorithm>
 #include <math.h>
+
+#include "common.cuh"
 
 namespace {
 
@@ -95,26 +94,6 @@ constexpr float kMaskNeg = -4294967295.0f;  // -(2**32)+1, as f32
 constexpr int kH1 = 64, kH2 = 32;
 constexpr int kWarps = 8;  // a block: all stage the weights, R <= 8 take rows
 constexpr unsigned kFull = 0xffffffffu;
-
-// x = hi + lo. hi is x rounded to TF32 as cvt.rna.tf32.f32 rounds it (to
-// nearest, ties away from zero), in two integer operations: add half a TF32
-// unit to the magnitude, clear the 13 bits TF32 drops. lo = x - hi is exact
-// in f32 (Sterbenz) and is passed as it is: the tensor core reads the top
-// 19 bits of a TF32 operand, so lo keeps 2^-10 of itself and x is kept to
-// 2^-21 of itself.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-// d += a (16x8, row) * b (8x8, col); TF32 inputs, f32 accumulators.
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // The b registers of a lane for one k-step: {hi(k0), hi(k1), lo(k0), lo(k1)}.
 __device__ __forceinline__ uint4 b_fragment(float k0, float k1) {
@@ -447,23 +426,19 @@ cudaError_t launch(const float* q, const float* keys, const int* lengths,
                    const float* b2, const float* w3, const float* b3, float* out,
                    int B, int T, int use_softmax, int device, cudaStream_t stream) {
   using L = Layout<D>;
-  cudaError_t err = cudaSetDevice(device);
+  DeviceLimits lim;
+  cudaError_t err = use_device(device, lim);
   if (err != cudaSuccess) return err;
-  int optin = 0, sms = 0;
-  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
+  const int sms = lim.sms;
   const size_t per_warp = sizeof(float) * L::kPerWarp;
   const size_t weights = sizeof(float) * L::kWeights;
   int R = kWarps;
-  while (R > 1 && weights + R * per_warp > (size_t)optin) --R;
+  while (R > 1 && weights + R * per_warp > (size_t)lim.smem_optin) --R;
   // small B: fewer rows a block, so that every SM gets a block
   R = std::min(R, std::max(1, (B + sms - 1) / sms));
   const size_t smem = weights + R * per_warp;
   auto kernel = din_attention_fwd_kernel<D>;
-  // Above 48 KB a block must opt in.
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  err = allow_smem(kernel, device, smem);
   if (err != cudaSuccess) return err;
   int per_sm = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kWarps * 32, smem);
@@ -920,11 +895,10 @@ cudaError_t launch_generic(const float* q, const float* keys, const int* lengths
                            const float* b2, const float* w3, const float* b3, float* out,
                            int B, int T, const GenDims& dm, int R, int stages,
                            int use_softmax, int vec16,
-                           int sms, cudaStream_t stream) {
+                           int sms, int device, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (gen_weight_words(Store, dm) + R * gen_warp_words(stages, dm));
   auto kernel = din_attention_generic_kernel<Store, Staged>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = allow_smem(kernel, device, smem);
   if (err != cudaSuccess) return err;
   int per_sm = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kGenWarps * 32, smem);
@@ -953,23 +927,11 @@ extern "C" int din_attention_fwd(const float* q, const float* keys,
                                  int device, void* stream) {
   if (B < 1 || T < 0 || H1 != kH1 || H2 != kH2) return (int)cudaErrorInvalidValue;
   if (((uintptr_t)keys & 15) != 0) return (int)cudaErrorMisalignedAddress;
-  auto s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 8:
-      return (int)launch<8>(q, keys, lengths, w1, b1, w2, b2, w3, b3, out, B, T,
-                            use_softmax, device, s);
-    case 16:
-      return (int)launch<16>(q, keys, lengths, w1, b1, w2, b2, w3, b3, out, B, T,
-                             use_softmax, device, s);
-    case 32:
-      return (int)launch<32>(q, keys, lengths, w1, b1, w2, b2, w3, b3, out, B, T,
-                             use_softmax, device, s);
-    case 64:
-      return (int)launch<64>(q, keys, lengths, w1, b1, w2, b2, w3, b3, out, B, T,
-                             use_softmax, device, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  auto run = D == 8 ? launch<8> : D == 16 ? launch<16> : D == 32 ? launch<32>
+             : D == 64 ? launch<64> : nullptr;
+  if (run == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)run(q, keys, lengths, w1, b1, w2, b2, w3, b3, out, B, T, use_softmax, device,
+                  static_cast<cudaStream_t>(stream));
 }
 
 // din_attention_generic_fwd: the generic kernel; any D, H1, H2 >= 1 and
@@ -987,13 +949,10 @@ extern "C" int din_attention_generic_fwd(const float* q, const float* keys,
                                          int D, int H1, int H2, int use_softmax,
                                          int device, void* stream) {
   if (B < 1 || T < 0 || D < 1 || H1 < 1 || H2 < 1) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+  DeviceLimits lim;
+  const cudaError_t err = use_device(device, lim);
   if (err != cudaSuccess) return (int)err;
-  int optin = 0, sms = 0;
-  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return (int)err;
+  const int sms = lim.sms, optin = lim.smem_optin;
   const GenDims dm = gen_dims(D, H1, H2);
   // rows an SM at most kGenWarps: at small B a block takes fewer rows, so
   // that every SM gets one
@@ -1016,23 +975,9 @@ extern "C" int din_attention_generic_fwd(const float* q, const float* keys,
   }
   if (R == 0) return (int)cudaErrorInvalidValue;
   const int vec16 = D % 4 == 0 && ((uintptr_t)keys & 15) == 0;
-  auto st = static_cast<cudaStream_t>(stream);
-  if (stages == 0)
-    return (int)launch_generic<kWGlobal, false>(q, keys, lengths, w1, b1, w2, b2, w3, b3, out, B,
-                                                T, dm, R, 0, use_softmax, vec16, sms, st);
-  switch (store) {
-    case kWFrag:
-      return (int)launch_generic<kWFrag, true>(q, keys, lengths, w1, b1, w2, b2, w3, b3, out, B, T,
-                                               dm, R, stages, use_softmax, vec16, sms, st);
-    case kWF32:
-      return (int)launch_generic<kWF32, true>(q, keys, lengths, w1, b1, w2, b2, w3, b3, out, B, T,
-                                              dm, R, stages, use_softmax, vec16, sms, st);
-    default:
-      return (int)launch_generic<kWGlobal, true>(q, keys, lengths, w1, b1, w2, b2, w3, b3, out, B,
-                                                 T, dm, R, stages, use_softmax, vec16, sms, st);
-  }
-}
-
-extern "C" const char* din_attention_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  auto run = stages == 0 ? launch_generic<kWGlobal, false>
+             : store == kWFrag ? launch_generic<kWFrag, true>
+             : store == kWF32 ? launch_generic<kWF32, true> : launch_generic<kWGlobal, true>;
+  return (int)run(q, keys, lengths, w1, b1, w2, b2, w3, b3, out, B, T, dm, R, stages, use_softmax,
+                  vec16, sms, device, static_cast<cudaStream_t>(stream));
 }

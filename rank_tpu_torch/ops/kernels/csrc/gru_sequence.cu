@@ -68,8 +68,7 @@
 // exp and division (no faster: the chain of dependent instructions, not
 // the special functions, sets a step's time).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
@@ -481,39 +480,26 @@ size_t bwd_smem(int H) {
   return sizeof(float) * (staged(H) + 4 * (size_t)H * kRows + 2 * (size_t)kRows * (H | 1));
 }
 
-template <typename Kernel>
-cudaError_t prepare(Kernel kernel, size_t smem) {
-  // Above 48 KB a block must opt in; past the card's limit this fails and
-  // the launch is refused with the error returned here.
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
-
 template <int RPT, int MODE>
 cudaError_t launch_fwd(const float* proj, const float* att, const int* lengths, const float* ug,
                        const float* uc, float* outs, float* h_final, float* gates,
-                       float* hprev, float* rh, int B, int T, int H, cudaStream_t stream) {
-  const size_t smem = fwd_smem(H);
+                       float* hprev, float* rh, int B, int T, int H, int device,
+                       cudaStream_t stream) {
   auto kernel = gates != nullptr ? gru_seq_fwd_kernel<RPT, MODE, true>
                                  : gru_seq_fwd_kernel<RPT, MODE, false>;
-  cudaError_t err = prepare(kernel, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<(B + kRows - 1) / kRows, threads_for(H), smem, stream>>>(
-      proj, att, lengths, ug, uc, outs, h_final, gates, hprev, rh, B, T, H);
-  return cudaGetLastError();
+  return launch_kernel(kernel, (B + kRows - 1) / kRows, threads_for(H), fwd_smem(H), device,
+                       stream, proj, att, lengths, ug, uc, outs, h_final, gates, hprev, rh, B, T,
+                       H);
 }
 
 template <int RPT, int MODE>
 cudaError_t launch_bwd(const float* gates, const float* hprev, const float* att,
                        const int* lengths, const float* ug, const float* uc,
                        const float* d_outs, const float* d_hT, float* d_pre, float* d_att,
-                       int B, int T, int H, cudaStream_t stream) {
-  const size_t smem = bwd_smem(H);
-  auto kernel = gru_seq_bwd_kernel<RPT, MODE>;
-  cudaError_t err = prepare(kernel, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<(B + kRows - 1) / kRows, threads_for(H), smem, stream>>>(
-      gates, hprev, att, lengths, ug, uc, d_outs, d_hT, d_pre, d_att, B, T, H);
-  return cudaGetLastError();
+                       int B, int T, int H, int device, cudaStream_t stream) {
+  return launch_kernel(gru_seq_bwd_kernel<RPT, MODE>, (B + kRows - 1) / kRows, threads_for(H),
+                       bwd_smem(H), device, stream, gates, hprev, att, lengths, ug, uc, d_outs,
+                       d_hT, d_pre, d_att, B, T, H);
 }
 
 cudaError_t check_args(int B, int T, int H, int mode, const float* att) {
@@ -547,7 +533,8 @@ extern "C" int gru_seq_fwd(const float* proj, const float* att, const int* lengt
   if (err != cudaSuccess) return (int)err;
   auto s = static_cast<cudaStream_t>(stream);
 #define GRU_SEQ_FWD(RPT, MODE) \
-  launch_fwd<RPT, MODE>(proj, att, lengths, ug, uc, outs, h_final, gates, hprev, rh, B, T, H, s)
+  launch_fwd<RPT, MODE>(proj, att, lengths, ug, uc, outs, h_final, gates, hprev, rh, B, T, H, \
+                        device, s)
   switch (rows_per_thread(H)) {
     case 2: return (int)BY_MODE(GRU_SEQ_FWD, 2);
     case 4: return (int)BY_MODE(GRU_SEQ_FWD, 4);
@@ -572,15 +559,12 @@ extern "C" int gru_seq_bwd(const float* gates, const float* hprev, const float* 
   if (err != cudaSuccess) return (int)err;
   auto s = static_cast<cudaStream_t>(stream);
 #define GRU_SEQ_BWD(RPT, MODE) \
-  launch_bwd<RPT, MODE>(gates, hprev, att, lengths, ug, uc, d_outs, d_hT, d_pre, d_att, B, T, H, s)
+  launch_bwd<RPT, MODE>(gates, hprev, att, lengths, ug, uc, d_outs, d_hT, d_pre, d_att, B, T, H, \
+                        device, s)
   switch (rows_per_thread(H)) {
     case 2: return (int)BY_MODE(GRU_SEQ_BWD, 2);
     case 4: return (int)BY_MODE(GRU_SEQ_BWD, 4);
     default: return (int)BY_MODE(GRU_SEQ_BWD, kWide);
   }
 #undef GRU_SEQ_BWD
-}
-
-extern "C" const char* gru_seq_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -29,17 +29,14 @@ that.
     trace it as one node, and its gradient recomputes through the plain
     version, as the JAX kernel's ``_bwd``
     (``rank_tpu/ops/pallas/din_attention.py:165``) does: there is no
-    backward kernel.
-  * ``DINAttentionFn``: the same gradient as a ``torch.autograd.Function``
-    around any forward implementation (a CPU test runs it with the plain
-    forward, ``chip_smoke.py`` with ``din_attention_cuda``).
+    backward kernel. It is the one gradient route, which the models and
+    the card checks take alike.
   * a FLOP formula for the operator (``register_flop_formula``), so that
     ``FlopCounterMode`` counts its products as it counts the plain
     version's, over every one of the B T keys; without it the operator
     counts 0.
-  * ``din_attention``: the operator, on either device (``backend='auto'``);
-    ``din_attention_cuda_fn`` the same, raising on CPU tensors
-    (``backend='pallas'``).
+  * ``din_attention``: the operator, on either device (``backend='auto'``,
+    and ``'pallas'``, whose module refuses CPU tensors).
 """
 
 from __future__ import annotations
@@ -63,21 +60,13 @@ from ...utils import tracing
 TENSOR_CORE_DIMS = (8, 16, 32, 64)
 TENSOR_CORE_HIDDEN = (64, 32)
 
-_lib = None
+_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+SIGNATURES = {"din_attention_fwd": _ARGTYPES, "din_attention_generic_fwd": _ARGTYPES}
 
 
 def library() -> ctypes.CDLL:
     """Build (at first use) and load the kernels' shared library."""
-    global _lib
-    if _lib is None:
-        lib = _build.load("din_attention")
-        for fn in (lib.din_attention_fwd, lib.din_attention_generic_fwd):
-            fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        lib.din_attention_error_string.argtypes = [ctypes.c_int]
-        lib.din_attention_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+    return _build.load("din_attention", SIGNATURES)
 
 
 def din_attention_plain(
@@ -147,19 +136,8 @@ def din_attention_cuda(
     consistent shapes."""
     check_shapes(query, keys, lengths, params)
     w1, b1, w2, b2, w3, b3 = params
-    named = {"query": query, "keys": keys, "lengths": lengths, "w1": w1, "b1": b1,
-             "w2": w2, "b2": b2, "w3": w3, "b3": b3}
-    for name, x in named.items():
-        if x.device.type != "cuda" or x.device != query.device:
-            raise ValueError(
-                f"din_attention_cuda needs every input on one CUDA device; "
-                f"{name} is on {x.device}, query on {query.device}"
-            )
-        want = torch.int32 if name == "lengths" else torch.float32
-        if x.dtype != want:
-            raise TypeError(f"din_attention_cuda: {name} is {x.dtype}, needs {want}")
-        if not x.is_contiguous():
-            raise ValueError(f"din_attention_cuda: {name} is not contiguous")
+    _build.check_operands("din_attention_cuda", dict(
+        query=query, keys=keys, lengths=lengths, w1=w1, b1=b1, w2=w2, b2=b2, w3=w3, b3=b3))
     b, t, d = keys.shape
     h1, h2 = w2.shape
     kernel = kernel_for(d, h1, h2)
@@ -168,19 +146,8 @@ def din_attention_cuda(
     out = torch.empty((b, d), dtype=torch.float32, device=query.device)
     if b == 0:
         return out
-    lib = library()
-    stream = torch.cuda.current_stream(query.device).cuda_stream
-    err = getattr(lib, kernel)(
-        query.data_ptr(), keys.data_ptr(), lengths.data_ptr(),
-        w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-        w3.data_ptr(), b3.data_ptr(), out.data_ptr(),
-        b, t, d, h1, h2, int(use_softmax), query.device.index, stream,
-    )
-    if err != 0:
-        raise RuntimeError(
-            f"{kernel} launch failed: {lib.din_attention_error_string(err).decode()} "
-            f"(B={b}, T={t}, D={d}, H1={h1}, H2={h2})"
-        )
+    _build.launch(library(), kernel, query.device, (query, keys, lengths, *params, out),
+                  (b, t, d, h1, h2, int(use_softmax)), B=b, T=t, D=d, H1=h1, H2=h2)
     if kernel == "din_attention_fwd":
         din_attention_cuda.launches += 1
     else:
@@ -201,25 +168,6 @@ def din_attention_vjp(query, keys, lengths, params, use_softmax, grad_out):
     with tracing.span("din_attention.backward"):
         _, pullback = torch.func.vjp(fn, query, keys, *params)
         return pullback(grad_out)
-
-
-class DINAttentionFn(torch.autograd.Function):
-    """``forward_fn`` in the forward pass; the backward pass is
-    ``din_attention_vjp`` and returns the gradients of query, keys and the
-    six params. ``lengths`` gets none. Taking ``forward_fn`` as an argument
-    lets a CPU test run this backward with the plain forward."""
-
-    @staticmethod
-    def forward(ctx, forward_fn, use_softmax, query, keys, lengths, *params):
-        ctx.use_softmax = use_softmax
-        ctx.save_for_backward(query, keys, lengths, *params)
-        return forward_fn(query, keys, lengths, params, use_softmax)
-
-    @staticmethod
-    def backward(ctx, grad_out):
-        query, keys, lengths, *params = ctx.saved_tensors
-        gq, gk, *gp = din_attention_vjp(query, keys, lengths, params, ctx.use_softmax, grad_out)
-        return (None, None, gq, gk, None, *gp)
 
 
 # -- the registered operator --------------------------------------------------------
@@ -290,11 +238,3 @@ def din_attention(
     """The registered operator: the kernel for CUDA tensors, the plain
     version for CPU tensors, with its gradient on both."""
     return din_attention_op(query, keys, lengths, *params, use_softmax)
-
-
-def din_attention_cuda_fn(query, keys, lengths, params, use_softmax) -> torch.Tensor:
-    """The operator, for CUDA tensors only: raises on CPU tensors rather
-    than running the plain version in the kernel's place."""
-    if keys.device.type != "cuda":
-        raise ValueError(f"the DIN attention kernel needs a CUDA device; keys are on {keys.device}")
-    return din_attention(query, keys, lengths, params, use_softmax)

@@ -55,47 +55,23 @@ MODES = {"gru": 0, "agru": 1, "augru": 2}
 # 1024
 MAX_HIDDEN = 512
 
-_lib = None
+_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+SIGNATURES = {"gru_seq_fwd": _ARGTYPES, "gru_seq_bwd": _ARGTYPES}
 
 
 def library() -> ctypes.CDLL:
     """Build (at first use) and load the kernels' shared library."""
-    global _lib
-    if _lib is None:
-        lib = _build.load("gru_sequence")
-        for fn in (lib.gru_seq_fwd, lib.gru_seq_bwd):
-            fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        lib.gru_seq_error_string.argtypes = [ctypes.c_int]
-        lib.gru_seq_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
-
-
-def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
-    return None if t is None else t.data_ptr()
+    return _build.load("gru_sequence", SIGNATURES)
 
 
 def _check(who: str, named: dict, h: int, mode: str) -> None:
-    """Raise unless ``mode`` is known, 1 <= H <= MAX_HIDDEN and every
-    tensor of ``named`` (None for an absent one) is contiguous, f32 (int32
-    for ``lengths``) and on the first one's CUDA device."""
+    """Raise unless ``mode`` is known, 1 <= H <= MAX_HIDDEN and the tensors
+    of ``named`` pass ``_build.check_operands``."""
     if mode not in MODES:
         raise ValueError(f"{who}: unknown mode {mode!r}; one of {tuple(MODES)}")
     if not 1 <= h <= MAX_HIDDEN:
         raise ValueError(f"{who}: H = {h}; the kernels take 1 <= H <= {MAX_HIDDEN}")
-    named = {name: x for name, x in named.items() if x is not None}
-    for name, x in named.items():
-        want = torch.int32 if name == "lengths" else torch.float32
-        if x.dtype != want:
-            raise TypeError(f"{who}: {name} is {x.dtype}, needs {want}")
-        if not x.is_contiguous():
-            raise ValueError(f"{who}: {name} is not contiguous")
-    first = next(iter(named.values()))
-    for name, x in named.items():
-        if x.device.type != "cuda" or x.device != first.device:
-            raise ValueError(f"{who} needs every input on one CUDA device; "
-                             f"{name} is on {x.device}, the first on {first.device}")
+    _build.check_operands(who, named)
 
 
 def _shapes(proj_or_gates: torch.Tensor, lengths, att, ug, uc, mode, who) -> Tuple[int, int, int]:
@@ -127,16 +103,9 @@ def gru_seq_cuda(proj: torch.Tensor, lengths: torch.Tensor, att: Optional[torch.
              if save else ())
     if b * t == 0:
         return outs, h_final, saved
-    lib = library()
-    stream = torch.cuda.current_stream(proj.device).cuda_stream
-    gates, hprev, rh = saved or (None, None, None)
-    err = lib.gru_seq_fwd(
-        proj.data_ptr(), _ptr(att), lengths.data_ptr(), ug.data_ptr(), uc.data_ptr(),
-        outs.data_ptr(), h_final.data_ptr(), _ptr(gates), _ptr(hprev), _ptr(rh),
-        b, t, h, MODES[mode], proj.device.index, stream)
-    if err != 0:
-        raise RuntimeError(f"gru_seq_fwd launch failed: {lib.gru_seq_error_string(err).decode()} "
-                           f"(B={b}, T={t}, H={h}, mode={mode})")
+    _build.launch(library(), "gru_seq_fwd", proj.device,
+                  (proj, att, lengths, ug, uc, outs, h_final, *(saved or (None, None, None))),
+                  (b, t, h, MODES[mode]), B=b, T=t, H=h, mode=mode)
     gru_seq_cuda.launches += 1
     return outs, h_final, saved
 
@@ -161,15 +130,9 @@ def gru_seq_bwd_cuda(gates: torch.Tensor, hprev: torch.Tensor, lengths: torch.Te
     d_att = None if mode == "gru" else gates.new_empty((b, t))
     if b * t == 0:
         return d_pre, d_att
-    lib = library()
-    stream = torch.cuda.current_stream(gates.device).cuda_stream
-    err = lib.gru_seq_bwd(
-        gates.data_ptr(), hprev.data_ptr(), _ptr(att), lengths.data_ptr(), ug.data_ptr(),
-        uc.data_ptr(), _ptr(d_outs), _ptr(d_h), d_pre.data_ptr(), _ptr(d_att),
-        b, t, h, MODES[mode], gates.device.index, stream)
-    if err != 0:
-        raise RuntimeError(f"gru_seq_bwd launch failed: {lib.gru_seq_error_string(err).decode()} "
-                           f"(B={b}, T={t}, H={h}, mode={mode})")
+    _build.launch(library(), "gru_seq_bwd", gates.device,
+                  (gates, hprev, att, lengths, ug, uc, d_outs, d_h, d_pre, d_att),
+                  (b, t, h, MODES[mode]), B=b, T=t, H=h, mode=mode)
     gru_seq_bwd_cuda.launches += 1
     return d_pre, d_att
 

@@ -7,9 +7,9 @@ versions and modules on the CPU on the other. Forward values agree to
 rtol/atol 1e-5 (a CIN layer sums up to H*F products in another order),
 model logits to 1e-4 and probabilities to 1e-5 (the bar of
 tests/test_forward_parity.py), gradients to rtol 1e-4 / atol 1e-5. The
-autograd Functions of both kernels (B1, B2) run here with the plain forward;
-their CUDA forwards run only on the card, where ``chip_smoke.py`` holds
-them against the plain versions.
+registered operators of both kernels (B1, B2) run here on CPU tensors, as
+the plain forward and the operator's gradient; their CUDA forwards run only
+on the card, where ``chip_smoke.py`` holds them against the plain versions.
 """
 
 import flax.linen as nn
@@ -81,8 +81,9 @@ def test_plain_layer_matches_jax_standard_layout(jax_fn):
 
 
 def test_cin_layer_fn_gradients_match_jax():
-    """B2's autograd Function, run with the plain forward, against jax.grad
-    through the Pallas kernel's custom_vjp (interpret mode)."""
+    """B2's registered operator on CPU tensors (the plain forward and
+    ``cin_layer_vjp``) against jax.grad through the Pallas kernel's
+    custom_vjp (interpret mode)."""
     xk_t, x0_t, w = _layer_inputs(b=7, h=9, o=6, seed=2)
     g = np.random.default_rng(3).normal(size=(7, 16, 6)).astype(np.float32)
 
@@ -91,24 +92,23 @@ def test_cin_layer_fn_gradients_match_jax():
 
     want = jax.jit(jax.grad(jax_loss, argnums=(0, 1, 2)))(*map(jnp.asarray, (xk_t, x0_t, w)))
     leaves = [x.requires_grad_() for x in _torch(xk_t, x0_t, w)]
-    out = tk.CINLayerFn.apply(tk.cin_layer_plain_t, *leaves)
+    out = tk.cin_layer_t(*leaves)
     (out * torch.from_numpy(g)).sum().backward()
     for leaf, ref in zip(leaves, want):
         np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(ref), **GRAD_TOL)
 
 
 def test_cpu_gradient_goes_through_the_plain_vjp():
-    """On CPU tensors the operator's gradient and ``CINLayerFn``'s are the
-    plain vjp, and the backward kernels' counter does not move."""
+    """On CPU tensors the operator's gradient is the plain vjp, and the
+    backward kernels' counter does not move."""
     xk_t, x0_t, w = _torch(*_layer_inputs(b=7, h=9, o=6, seed=6))
     g = torch.from_numpy(np.random.default_rng(7).normal(size=(7, 16, 6)).astype(np.float32))
     want = tk.cin_layer_vjp_plain(xk_t, x0_t, w, g)
     before = tk.cin_layer_bwd_cuda_t.launches
-    for route in (tk.cin_layer_t, lambda *x: tk.CINLayerFn.apply(tk.cin_layer_plain_t, *x)):
-        leaves = [x.clone().requires_grad_() for x in (xk_t, x0_t, w)]
-        route(*leaves).backward(g)
-        for leaf, ref in zip(leaves, want):
-            torch.testing.assert_close(leaf.grad, ref, rtol=0, atol=0)
+    leaves = [x.clone().requires_grad_() for x in (xk_t, x0_t, w)]
+    tk.cin_layer_t(*leaves).backward(g)
+    for leaf, ref in zip(leaves, want):
+        torch.testing.assert_close(leaf.grad, ref, rtol=0, atol=0)
     assert tk.cin_layer_bwd_cuda_t.launches == before
 
 
@@ -155,9 +155,9 @@ def test_backward_weight_operand_matches_einsum(h, o):
 
 @pytest.mark.parametrize("use_softmax", [False, True])
 def test_din_attention_fn_gradients_match_jax(use_softmax):
-    """B1's autograd Function, run with the plain forward, against jax.grad
-    through the Pallas kernel's custom_vjp (interpret mode); ``lengths``
-    gets no gradient."""
+    """B1's registered operator on CPU tensors (the plain forward and
+    ``din_attention_vjp``) against jax.grad through the Pallas kernel's
+    custom_vjp (interpret mode); ``lengths`` gets no gradient."""
     rng = np.random.default_rng(4)
     b, t, d = 5, 12, 16
     q = rng.normal(size=(b, d)).astype(np.float32)
@@ -174,8 +174,8 @@ def test_din_attention_fn_gradients_match_jax(use_softmax):
     jq, jk, jp = jax.jit(jax.grad(jax_loss, argnums=(0, 1, 2)))(
         jnp.asarray(q), jnp.asarray(k), tuple(map(jnp.asarray, params)))
     leaves = [x.requires_grad_() for x in _torch(q, k, *params)]
-    out = dk.DINAttentionFn.apply(dk.din_attention_plain, use_softmax, leaves[0], leaves[1],
-                                  torch.from_numpy(lengths), *leaves[2:])
+    out = dk.din_attention(leaves[0], leaves[1], torch.from_numpy(lengths), leaves[2:],
+                           use_softmax)
     (out * torch.from_numpy(g)).sum().backward()
     for leaf, ref in zip(leaves, [jq, jk, *jp]):
         np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(ref), **GRAD_TOL)
@@ -235,12 +235,11 @@ def test_cin_raises_on_odd_split_and_unknown_backend():
 
 def test_kernel_request_on_cpu_raises():
     """The kernel is never swapped for the plain version on a CPU tensor:
-    asking for it by name raises."""
+    asking for it by name, or for the module's ``'pallas'`` backend,
+    raises."""
     xk_t, x0_t, w = _torch(*_layer_inputs(b=2))
     with pytest.raises(ValueError, match="CUDA"):
         tk.cin_layer_cuda_t(xk_t, x0_t, w)
-    with pytest.raises(ValueError, match="CUDA"):
-        tk.cin_layer_cuda_fn_t(xk_t, x0_t, w)
     mod = CIN(7, (8, 8), backend="pallas")
     with pytest.raises(ValueError, match="CUDA"):
         mod(torch.zeros(2, 7, 16))

@@ -116,19 +116,16 @@ def test_backward_kernel_is_deterministic(card):
 
 def test_backward_launches_once_a_layer(card):
     """One call of the backward kernels a layer a backward pass, through the
-    registered operator, through ``CINLayerFn`` and through the CIN module;
-    none in a forward pass."""
+    registered operator and through the CIN module; none in a forward
+    pass."""
     gen = torch.Generator().manual_seed(5)
     xk, x0, w, g = layer_inputs(64, 1, gen, card)
-    routes = (ck.cin_layer_t,
-              lambda *x: ck.CINLayerFn.apply(ck.cin_layer_cuda_t, *x))
-    for route in routes:
-        leaves = [x.detach().requires_grad_() for x in (xk, x0, w)]
-        before = ck.cin_layer_bwd_cuda_t.launches
-        out = route(*leaves)
-        assert ck.cin_layer_bwd_cuda_t.launches == before
-        out.backward(g)
-        assert ck.cin_layer_bwd_cuda_t.launches == before + 1
+    leaves = [x.detach().requires_grad_() for x in (xk, x0, w)]
+    before = ck.cin_layer_bwd_cuda_t.launches
+    out = ck.cin_layer_t(*leaves)
+    assert ck.cin_layer_bwd_cuda_t.launches == before
+    out.backward(g)
+    assert ck.cin_layer_bwd_cuda_t.launches == before + 1
     mod = CIN(7, (128, 128), generator=gen).to(card)
     before = ck.cin_layer_bwd_cuda_t.launches
     mod(torch.randn(32, 7, 16, generator=gen).to(card)).sum().backward()

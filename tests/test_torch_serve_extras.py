@@ -28,6 +28,8 @@ from rank_tpu_torch import export_serving_artifact, load_serving_artifact
 from rank_tpu_torch.data.synthetic import make_synthetic_dataset
 from rank_tpu_torch.interop import _flax_source, state_dict_from_flax
 from rank_tpu_torch.models.registry import DEFAULT_CONFIGS
+from rank_tpu_torch.ops.attention import DINAttention
+from rank_tpu_torch.ops.cin import CIN
 from rank_tpu_torch.ops.fm import pair_index_tensors
 from rank_tpu_torch.ops.kernels import cin as ck
 from rank_tpu_torch.ops.kernels import din_attention as dk
@@ -248,7 +250,8 @@ def test_cin_layer_operator_opcheck(dtype):
 
 def test_operators_are_the_plain_versions_on_the_cpu():
     """On CPU tensors the operators compute the plain versions, in the
-    inputs' dtype (bf16 arithmetic, as JAX's under bf16 weights)."""
+    inputs' dtype (bf16 arithmetic, as JAX's under bf16 weights); the
+    modules' ``'pallas'`` backend refuses them."""
     for dtype in (torch.float32, torch.bfloat16):
         q, k, lengths, *params, use_softmax = _din_args(dtype, True)
         with torch.no_grad():
@@ -259,9 +262,9 @@ def test_operators_are_the_plain_versions_on_the_cpu():
     xk, x0, w = torch.randn(2, 3, 5), torch.randn(2, 3, 4), torch.randn(6, 5, 4).bfloat16()
     assert ck.cin_layer_t(xk, x0, w).dtype == torch.float32  # bf16 weights promote to f32
     with pytest.raises(ValueError, match="CUDA"):
-        ck.cin_layer_cuda_fn_t(xk, x0, w)
+        CIN(4, (6,), backend="pallas")(x0.transpose(1, 2))
     with pytest.raises(ValueError, match="CUDA"):
-        dk.din_attention_cuda_fn(q, k, lengths, params, True)
+        DINAttention(k.shape[2], use_softmax=True, backend="pallas")(q, k, lengths)
 
 
 def test_training_after_serving_in_one_process():
